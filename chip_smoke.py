@@ -9,9 +9,11 @@ Phases, each printing one line with its seconds:
   1. the card's name and power limit (nvidia-smi), then one ``nvcc`` build
      of the trigger kernels K1-K3 (``combat_tpu_torch/csrc/trigger.cu``);
   2. each kernel, forward and backward, held to its plain PyTorch version
-     at the slice's shapes (bs 128, 3 x 32 x 32 f32), and timed with CUDA
-     events beside its plain version and the same function as dense
-     ``torch.matmul``s (``library_ms``);
+     (K1/K2 at 32 and 64 px, 3 and 5 taps, two sigmas, 384 and 383 planes;
+     K3 at the slice's shapes, bs 128, 3 x 32 x 32 f32), and timed with CUDA
+     events at the slice's shapes beside its plain version and the same
+     function as dense ``torch.matmul``s (``library_ms``); K1/K2 also at
+     64 px, and their device durations traced with ``torch.profiler``;
   3. ``train_clean_classifier`` at full width (PreActResNet18, bs 128,
      1024 synthetic images: 8 steps, then eval);
   4. ``train_generator`` on that checkpoint, fused trigger (K1/K2): 8
@@ -85,6 +87,56 @@ def _bound_ms(nbytes: int, flops: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def _trigger_inputs(h: int, seed: int):
+    """(x, noise, g) as 384 planes of h x h, one per (image, channel)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((BS * C, 1, h, h), generator=gen, device="cuda") * 2 - 1
+    noise = torch.rand((BS * C, 1, h, h), generator=gen, device="cuda") * 2 - 1
+    g = torch.randn((BS * C, 1, h, h), generator=gen, device="cuda")
+    return x, noise, g
+
+
+def check_fused_trigger() -> dict:
+    """K1 and K2 against their plain versions at 32 and 64 px, 3 and 5 taps,
+    a small and a large sigma (B^T != B at the borders), and a full and a
+    ragged plane count; returns the largest error of each."""
+    import torch
+
+    from combat_tpu_torch.ops import trigger_kernels as tk
+    from combat_tpu_torch.ops.blur import blur_matrix, gaussian_kernel_1d
+
+    worst = {"fused_trigger_fwd": 0.0, "fused_trigger_bwd": 0.0}
+    for h in (32, 64):
+        D, M = tk.trigger_operands(h, RATIO, "cuda")
+        Dc = tk.truncated_dct(h, RATIO, "cuda")
+        full = _trigger_inputs(h, seed=h)
+        for k in (3, 5):
+            for sigma in (0.14, 0.9):
+                taps = gaussian_kernel_1d(k, sigma, device="cuda")
+                B = blur_matrix(taps, h)
+                for planes in (BS * C, BS * C - 1):
+                    x, noise, g = (t[:planes] for t in full)
+                    out, u = tk.fused_trigger_fwd(x, noise, taps, Dc, NOISE_RATE)
+                    gx, gn = tk.fused_trigger_bwd(g, u, taps, Dc, NOISE_RATE)
+                    ref_out, ref_u = tk.fused_trigger_fwd_plain(x, noise, B, D, M, NOISE_RATE)
+                    # K2 on the same inputs, K1's own u: where u lies within
+                    # rounding of +-1 the plain u's clamp mask could differ.
+                    ref_gx, ref_gn = tk.fused_trigger_bwd_plain(g, u, B, D, M, NOISE_RATE)
+                    fwd = max(_err(out, ref_out), _err(u, ref_u))
+                    bwd = max(_err(gx, ref_gx), _err(gn, ref_gn))
+                    print(f"  K1/K2 H={h} k={k} sigma={sigma} planes={planes}: "
+                          f"fwd {fwd:.3e}, bwd {bwd:.3e}", flush=True)
+                    worst["fused_trigger_fwd"] = max(worst["fused_trigger_fwd"], fwd)
+                    worst["fused_trigger_bwd"] = max(worst["fused_trigger_bwd"], bwd)
+    return worst
+
+
 def compare_kernels():
     """Phase 2: each kernel against its plain version, and its times."""
     import torch
@@ -102,6 +154,7 @@ def compare_kernels():
     taps = gaussian_kernel_1d(3, 0.9, device=dev)
     B = blur_matrix(taps, H)  # large sigma: B^T != B matters
     D, M = tk.trigger_operands(H, RATIO, str(dev))
+    Dc = tk.truncated_dct(H, RATIO, str(dev))
     planes, plane_bytes, mat_bytes = BS * C, BS * C * H * H * 4, H * H * 4
 
     # The same functions as dense matmuls on (planes, H*H) rows (the yardstick):
@@ -119,8 +172,8 @@ def compare_kernels():
         gu = torch.matmul(flat(g), Bk_t.T) * ((u >= -1.0) & (u <= 1.0))
         return gu, torch.matmul(gu, L_t) * NOISE_RATE
 
-    out, u = tk.fused_trigger_fwd(x, noise, B, D, M, NOISE_RATE)
-    gx, gn = tk.fused_trigger_bwd(g, u, B, D, M, NOISE_RATE)
+    errors = check_fused_trigger()
+    out, u = tk.fused_trigger_fwd(x, noise, taps, Dc, NOISE_RATE)
     low = tk.low_freq_planes(x, D, M)
     ref_out, ref_u = tk.fused_trigger_fwd_plain(x, noise, B, D, M, NOISE_RATE)
     ref_gx, ref_gn = tk.fused_trigger_bwd_plain(g, ref_u, B, D, M, NOISE_RATE)
@@ -131,15 +184,8 @@ def compare_kernels():
     lib_gx, lib_gn = lib_bwd(lib_u)
     torch.cuda.synchronize()
 
-    def err(a, b):
-        return float((a - b).abs().max())
-
-    errors = {
-        "fused_trigger_fwd": max(err(out, ref_out), err(u, ref_u)),
-        "fused_trigger_bwd": max(err(gx, ref_gx), err(gn, ref_gn)),
-        "low_freq": max(err(low, ref_low), err(low_bwd, ref_low_bwd)),
-    }
-    lib_err = max(err(lib_out, flat(ref_out)), err(lib_gx, flat(ref_gx)), err(lib_gn, flat(ref_gn)))
+    errors["low_freq"] = max(_err(low, ref_low), _err(low_bwd, ref_low_bwd))
+    lib_err = max(_err(lib_out, flat(ref_out)), _err(lib_gx, flat(ref_gx)), _err(lib_gn, flat(ref_gn)))
     for name, e in errors.items():
         print(f"  {name}: max |kernel - plain| = {e:.3e} (tolerance {KERNEL_TOL:.0e})", flush=True)
     print(f"  dense-matmul yardstick: max |library - plain| = {lib_err:.3e} (tolerance 1e-3)", flush=True)
@@ -151,12 +197,12 @@ def compare_kernels():
 
     times = {
         "fused_trigger_fwd": (
-            _event_ms(lambda: tk.fused_trigger_fwd(x, noise, B, D, M, NOISE_RATE)),
+            _event_ms(lambda: tk.fused_trigger_fwd(x, noise, taps, Dc, NOISE_RATE)),
             _event_ms(lambda: tk.fused_trigger_fwd_plain(x, noise, B, D, M, NOISE_RATE)),
             _event_ms(lib_fwd),
         ),
         "fused_trigger_bwd": (
-            _event_ms(lambda: tk.fused_trigger_bwd(g, u, B, D, M, NOISE_RATE)),
+            _event_ms(lambda: tk.fused_trigger_bwd(g, u, taps, Dc, NOISE_RATE)),
             _event_ms(lambda: tk.fused_trigger_bwd_plain(g, u, B, D, M, NOISE_RATE)),
             _event_ms(lambda: lib_bwd(lib_u)),
         ),
@@ -166,20 +212,22 @@ def compare_kernels():
             _event_ms(lambda: torch.matmul(flat(x), L_t)),
         ),
     }
-    # Bytes: each input read once, each output written once; D, M (and B)
-    # once per call.  Operations: the least the function needs per plane
-    # (one FMA = 2).  The low-pass keeps only the cutoff x cutoff corner of
-    # the coefficients, so its four products shrink to 2k*H*H + 2k*k*H FMAs;
-    # its affine pre- and post-scaling folds away (the DC passes the mask).
-    # The blur B c B^T (and B^T g B) is banded: one pass per side of `taps`
-    # FMAs per output.  Elementwise: u = x + r*low and the clamp (4) forward;
-    # the clamp mask (3) backward.
-    k = int(M[0].sum().item())
-    lowpass = 2 * (2 * k * H * H + 2 * k * k * H)
+    time_trigger_variants(taps, Dc)
+    # Bytes: each input read once, each output written once; K1/K2 read D_c
+    # and the taps once per call, K3 D and M.  Operations: the least the
+    # function needs per plane (one FMA = 2).  The low-pass keeps only the
+    # c x c corner of the coefficients, so its four products shrink to
+    # 2c*H*H + 2c*c*H FMAs; its affine pre- and post-scaling folds away (the
+    # DC passes the mask).  The blur B c B^T (and B^T g B) is banded: one
+    # pass per side of `taps` FMAs per output.  Elementwise: u = x + r*low
+    # and the clamp (4) forward; the clamp mask (3) backward.
+    c = Dc.shape[0]
+    lowpass = 2 * (2 * c * H * H + 2 * c * c * H)
     blur = 2 * (2 * H * H * taps.numel())
+    trigger_bytes = 4 * plane_bytes + Dc.numel() * 4 + taps.numel() * 4
     work = {
-        "fused_trigger_fwd": (4 * plane_bytes + 3 * mat_bytes, (lowpass + blur + 4 * H * H) * planes),
-        "fused_trigger_bwd": (4 * plane_bytes + 3 * mat_bytes, (lowpass + blur + 3 * H * H) * planes),
+        "fused_trigger_fwd": (trigger_bytes, (lowpass + blur + 4 * H * H) * planes),
+        "fused_trigger_bwd": (trigger_bytes, (lowpass + blur + 3 * H * H) * planes),
         "low_freq": (2 * plane_bytes + 2 * mat_bytes, lowpass * planes),
     }
     source = "combat_tpu_torch/csrc/trigger.cu"
@@ -200,6 +248,64 @@ def compare_kernels():
         print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f}, dense matmuls {library_ms:.4f}, "
               f"bound {bound_ms:.4f} by {bound_by})", flush=True)
     return rows
+
+
+def time_trigger_variants(taps, Dc) -> None:
+    """K1/K2 at 64 px (384 planes, c = 41) beside their plain versions, then
+    their device durations from a profiler trace: at 384 planes and at one
+    plane per SM (every block resident at once, so the duration is one
+    block's latency) of 32x32, and at 384 planes of 64x64."""
+    import torch
+
+    from combat_tpu_torch.ops import trigger_kernels as tk
+    from combat_tpu_torch.ops.blur import blur_matrix
+
+    h = 64
+    x, noise, g = _trigger_inputs(h, seed=5)
+    D, M = tk.trigger_operands(h, RATIO, "cuda")
+    Dc64 = tk.truncated_dct(h, RATIO, "cuda")
+    B = blur_matrix(taps, h)
+    u = tk.fused_trigger_fwd(x, noise, taps, Dc64, NOISE_RATE)[1]
+    fwd = (_event_ms(lambda: tk.fused_trigger_fwd(x, noise, taps, Dc64, NOISE_RATE)),
+           _event_ms(lambda: tk.fused_trigger_fwd_plain(x, noise, B, D, M, NOISE_RATE)))
+    bwd = (_event_ms(lambda: tk.fused_trigger_bwd(g, u, taps, Dc64, NOISE_RATE)),
+           _event_ms(lambda: tk.fused_trigger_bwd_plain(g, u, B, D, M, NOISE_RATE)))
+    print(f"  H=64: fused_trigger_fwd {fwd[0]:.4f} ms (plain {fwd[1]:.4f}); "
+          f"fused_trigger_bwd {bwd[0]:.4f} ms (plain {bwd[1]:.4f})", flush=True)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for h, planes, dc in ((H, sms, Dc), (H, BS * C, Dc), (64, BS * C, Dc64)):
+        x, noise, g = (t[:planes] for t in _trigger_inputs(h, seed=8))
+        u = tk.fused_trigger_fwd(x, noise, taps, dc, NOISE_RATE)[1]
+        traced = _traced_us({
+            "fused_trigger_fwd_kernel": lambda: tk.fused_trigger_fwd(x, noise, taps, dc, NOISE_RATE),
+            "fused_trigger_bwd_kernel": lambda: tk.fused_trigger_bwd(g, u, taps, dc, NOISE_RATE),
+        })
+        print(f"  traced device duration, {planes} planes of {h}x{h}: "
+              + ", ".join(f"{k} {v}" for k, v in traced.items()), flush=True)
+
+
+def _traced_us(calls: dict, reps: int = 50) -> dict:
+    """Mean, min and max device duration (us) of each kernel, by a substring
+    of its name, over ``reps`` launches traced by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key in calls:
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name]
+        out[key] = (f"mean {sum(us) / len(us):.3f} us (min {min(us):.3f}, max {max(us):.3f}, n {len(us)})"
+                    if us else "not measured (no device event in the trace)")
+    return out
 
 
 def check_checkpoint(path: str) -> None:
@@ -340,7 +446,8 @@ def main(argv=None) -> int:
     tb = time.perf_counter()
     tk.build()
     print(f"  build: {time.perf_counter() - tb:.3f} s (one nvcc call)", flush=True)
-    print("\n".join(f"  {line}" for line in tk.BUILD_LOG.splitlines() if "registers" in line or "smem" in line))
+    print("\n".join(f"  {line.strip()}" for line in tk.BUILD_LOG.splitlines()
+                    if any(w in line for w in ("Compiling entry", "registers", "smem", "spill"))))
     _phase("1 card + build", t0)
 
     # 2. kernels against their plain versions, and their times

@@ -4,7 +4,8 @@
 :func:`additive_trigger` is the core COMBAT trigger,
 ``gauss_smooth(clamp(x + low_freq(G(x)) * noise_rate, -1, 1))``.  With
 ``fused`` (the port's default, ``--pallas_trigger``) the whole chain is one
-autograd function whose forward is kernel K1 and backward kernel K2; without
+autograd function whose forward is kernel K1 and backward kernel K2, which
+take the blur's taps and the truncated DCT matrix; without
 it the low-pass runs as kernel K3, followed by clamp and a depthwise blur.
 """
 
@@ -14,9 +15,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.blur import blur_matrix, draw_sigma, gaussian_blur, gaussian_kernel_1d
+from ..ops.blur import draw_sigma, gaussian_blur, gaussian_kernel_1d
 from ..ops.dct import low_freq
-from ..ops.trigger_kernels import FusedTrigger, trigger_operands
+from ..ops.trigger_kernels import FusedTrigger, truncated_dct
 
 
 def create_targets_bd(targets: torch.Tensor, attack_mode: str, target_label: int, num_classes: int) -> torch.Tensor:
@@ -50,9 +51,8 @@ def additive_trigger(
     if fused:
         if not x.shape[-2] == x.shape[-1] == image_size:
             raise ValueError(f"the fused trigger takes square {image_size}px images, got {tuple(x.shape)}")
-        D, M = trigger_operands(image_size, ratio, str(x.device))
-        B = blur_matrix(gaussian_kernel_1d(kernel_size, sigma_draw, x.dtype, x.device), image_size)
-        return FusedTrigger.apply(x, noise, B, D, M, noise_rate)
+        taps = gaussian_kernel_1d(kernel_size, sigma_draw, x.dtype, x.device)
+        return FusedTrigger.apply(x, noise, taps, truncated_dct(image_size, ratio, str(x.device)), noise_rate)
     n = low_freq(noise, image_size=image_size, ratio=ratio)
     x_bd = torch.clamp(x + n * noise_rate, -1.0, 1.0)
     return gaussian_blur(x_bd, sigma_draw, kernel_size)

@@ -6,32 +6,44 @@ interface, loaded with ctypes):
 
   K1 ``fused_trigger_fwd`` replaces ``pallas_kernels.py:_fused_trigger_impl``
      (kernel ``_fused_trigger_fwd_kernel``).  Per (image, channel) plane:
-     y = (n+1)*127.5; low = D^T((D y D^T) o M)D * 2/255 - 1;
-     u = x + noise_rate*low (saved); out = B clip(u, -1, 1) B^T.
+     y = (n+1)*127.5; low = D_c^T (D_c y D_c^T) D_c * 2/255 - 1;
+     u = x + noise_rate*low (saved); out = blur_k(clip(u, -1, 1)).
   K2 ``fused_trigger_bwd`` replaces ``pallas_kernels.py:_fused_trigger_vjp_bwd``
-     (kernel ``_fused_trigger_bwd_kernel``): g_u = (B^T g B)*1{-1<=u<=1};
-     g_x = g_u; g_n = noise_rate * D^T((D g_u D^T) o M)D.
+     (kernel ``_fused_trigger_bwd_kernel``): g_u = blur_k^T(g)*1{-1<=u<=1};
+     g_x = g_u; g_n = noise_rate * D_c^T (D_c g_u D_c^T) D_c.
   K3 ``low_freq`` replaces ``pallas_kernels.py:_low_freq_pallas_impl``
      (kernel ``_low_freq_kernel``): D^T((D y D^T) o M)D * 2/255 - 1 with
      y = (x+1)*127.5.  Self-adjoint for a DC-passing mask, so the backward
      pass is the same kernel on the cotangent.
 
-Bound on an H100 SXM at the slice's shapes (bs 128, 3 x 32 x 32 f32, so 384
-planes): K1 and K2 read two 1.57 MB arrays and write two (6.3 MB, ~1.9 us
-at 3.35 TB/s).  The least work they need is the low-pass on the 20 x 20
-corner of the coefficients plus the banded 3-tap blur, ~57 MFLOP (~0.9 us at
-67 TFLOP/s of f32 FMA), so they are bound by bytes at ~1.9 us; K3 moves
-3.1 MB and needs ~51 MFLOP, bound by bytes at ~0.94 us.  The kernels read each input once, write each output once, and keep
-every intermediate in shared memory; each block owns one contiguous NCHW
-plane, so no transposes are needed.  Making them reach that bound (more
-planes per block, tensor-core products) is later work.
+``D_c`` is the first ``c = int(H*ratio)`` rows of the orthonormal DCT-II
+matrix D (:func:`truncated_dct`): the JAX kernels' mask M keeps the c x c
+corner of the coefficients, so D^T((D y D^T) o M)D = D_c^T (D_c y D_c^T) D_c.
+``blur_k`` is the reflect-padded k-tap blur B c B^T of ``ops/blur.py``; K1
+and K2 take its taps and apply it as a band, never the dense B.
 
-Beside each kernel: its plain PyTorch version (matmuls on the same D, M and
-B), which the CPU tests use and ``chip_smoke.py`` compares the kernel with; a
-launch count in :data:`LAUNCHES`; and the ``torch.autograd.Function`` that
-wires it into training (:class:`FusedTrigger`, :class:`LowFreq`).  A wrapper
-takes the plain version only for a CPU tensor.  For a CUDA tensor it
-launches the kernel or raises.
+Bound on an H100 SXM at the slice's shapes (bs 128, 3 x 32 x 32 f32, so 384
+planes): K1 and K2 read two 1.57 MB arrays and write two (6.3 MB, ~1.88 us
+at 3.35 TB/s).  The least work they need is the truncated low-pass plus the
+banded 3-tap blur, ~57 MFLOP (~0.9 us at 67 TFLOP/s of f32 FMA), so they are
+bound by bytes; K3 moves 3.1 MB and needs ~51 MFLOP, bound by bytes at
+~0.94 us.  The first design of K1/K2 (one block per plane, six dense H^3
+products with both operands loaded from shared memory for every FMA) was
+held back by shared-memory loads, ~12 k warp-wide loads per plane, and did
+2.7x the work the function needs.  The current K1/K2 do only the truncated
+products and the band, tile the products in registers so each loaded value
+feeds several FMAs, and copy D_c and the plane's inputs into shared memory
+with ``cp.async`` while the block sets up; one block per plane, as before.
+On an H100 they run at ~22% of their bound, held back by the latency of each
+block's dependent chain of products; ``trigger.cu`` has the details.  K3
+keeps the first design.
+
+Beside each kernel: its plain PyTorch version, which keeps the JAX kernels'
+dense (D, M, B) form, is the CPU path and what ``chip_smoke.py`` compares the
+kernel with; a launch count in :data:`LAUNCHES`; and the
+``torch.autograd.Function`` that wires it into training (:class:`FusedTrigger`,
+:class:`LowFreq`).  A wrapper takes the plain version only for a CPU tensor.
+For a CUDA tensor it launches the kernel or raises.
 
 The library is built at first use by one ``nvcc`` call into
 ``build/combat_tpu_torch/`` of the checkout, named by the hash of the
@@ -52,6 +64,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from .blur import blur_matrix
 
 MAX_PLANE = 64  # the shared-memory design holds one H x H plane per block
 _NVCC_FLAGS = (
@@ -108,8 +122,8 @@ def build() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.combat_fused_trigger_fwd.argtypes = [p, p, p, p, p, p, p, i, i, f, p]
-    lib.combat_fused_trigger_bwd.argtypes = [p, p, p, p, p, p, p, i, i, f, p]
+    lib.combat_fused_trigger_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.combat_fused_trigger_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
     lib.combat_low_freq.argtypes = [p, p, p, p, i, i, p]
     for fn in (lib.combat_fused_trigger_fwd, lib.combat_fused_trigger_bwd, lib.combat_low_freq):
         fn.restype = ctypes.c_int
@@ -133,14 +147,25 @@ def _dct_matrix_np(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def trigger_operands(h: int, ratio: float, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(D, M): the (h, h) DCT-II matrix and the ``int(h*ratio)`` low-pass
-    square mask, float32 on ``device``."""
-    cutoff = int(h * ratio)
+def _dense_operands(h: int, cutoff: int, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
     d = torch.tensor(_dct_matrix_np(h), dtype=torch.float32, device=device)
     idx = torch.arange(h, device=device)
     mask = ((idx < cutoff)[:, None] & (idx < cutoff)[None, :]).to(torch.float32)
     return d, mask
+
+
+def trigger_operands(h: int, ratio: float, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(D, M): the (h, h) DCT-II matrix and the ``int(h*ratio)`` low-pass
+    square mask, float32 on ``device``."""
+    return _dense_operands(h, int(h * ratio), device)
+
+
+@functools.lru_cache(maxsize=None)
+def truncated_dct(h: int, ratio: float, device: str) -> torch.Tensor:
+    """D_c: the first ``c = int(h*ratio)`` rows of the DCT-II matrix, the
+    (c, h) float32 operand of K1/K2 (c may be 0)."""
+    d, _ = trigger_operands(h, ratio, device)
+    return d[: int(h * ratio)].contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -205,6 +230,34 @@ def _check_cuda(planes: torch.Tensor, *mats: torch.Tensor) -> Tuple[int, int]:
     return planes.shape[0] * planes.shape[1], h
 
 
+def _check_trigger(a: torch.Tensor, b: torch.Tensor, taps: torch.Tensor, Dc: torch.Tensor) -> int:
+    """Validate the operands of K1/K2 on any device; returns H."""
+    if a.dim() != 4 or a.shape[-1] != a.shape[-2] or b.shape != a.shape:
+        raise ValueError(f"the fused trigger takes two square NCHW batches of one shape, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    h = a.shape[-1]
+    if taps.dim() != 1 or taps.numel() < 1 or taps.numel() // 2 >= h:
+        raise ValueError(f"blur of {taps.numel()} taps on {h}px planes: needs kernel_size // 2 < H")
+    if Dc.dim() != 2 or Dc.shape[1] != h or Dc.shape[0] > h:
+        raise ValueError(f"D_c of shape {tuple(Dc.shape)} is not (c <= {h}, {h})")
+    return h
+
+
+def _launch_trigger(fn, a, b, taps, Dc, noise_rate: float, name: str):
+    n_planes, h = _check_cuda(a)
+    for t in (b, taps, Dc):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("trigger kernels take contiguous float32 tensors")
+    o0, o1 = torch.empty_like(a), torch.empty_like(a)
+    err = fn(
+        a.data_ptr(), b.data_ptr(), Dc.data_ptr(), taps.data_ptr(), o0.data_ptr(), o1.data_ptr(),
+        n_planes, h, Dc.shape[0], taps.numel(), float(noise_rate), _stream(),
+    )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return o0, o1
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
@@ -214,38 +267,27 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def fused_trigger_fwd(x, noise, B, D, M, noise_rate: float):
-    """K1: (out, u) for the NCHW batch ``x`` and generator output ``noise``."""
-    if _on_cpu(x, noise, B, D, M):
-        return fused_trigger_fwd_plain(x, noise, B, D, M, noise_rate)
-    n_planes, h = _check_cuda(x, B, D, M)
-    if noise.shape != x.shape or noise.dtype != torch.float32 or not noise.is_contiguous():
-        raise ValueError("noise must be a contiguous float32 tensor of x's shape")
-    out, u = torch.empty_like(x), torch.empty_like(x)
-    err = build().combat_fused_trigger_fwd(
-        x.data_ptr(), noise.data_ptr(), D.data_ptr(), M.data_ptr(), B.data_ptr(),
-        out.data_ptr(), u.data_ptr(), n_planes, h, float(noise_rate), _stream(),
-    )
-    _raise_on(err, "fused_trigger_fwd")
-    LAUNCHES["fused_trigger_fwd"] += 1
-    return out, u
+def _plain_operands(h: int, taps: torch.Tensor, Dc: torch.Tensor):
+    """The dense (B, D, M) that the plain versions take, from the taps and D_c."""
+    D, M = _dense_operands(h, Dc.shape[0], str(Dc.device))
+    return blur_matrix(taps, h), D, M
 
 
-def fused_trigger_bwd(g, u, B, D, M, noise_rate: float):
+def fused_trigger_fwd(x, noise, taps, Dc, noise_rate: float):
+    """K1: (out, u) for the NCHW batch ``x`` and generator output ``noise``;
+    ``taps`` are the blur's k taps and ``Dc`` the truncated DCT matrix."""
+    h = _check_trigger(x, noise, taps, Dc)
+    if _on_cpu(x, noise, taps, Dc):
+        return fused_trigger_fwd_plain(x, noise, *_plain_operands(h, taps, Dc), noise_rate)
+    return _launch_trigger(build().combat_fused_trigger_fwd, x, noise, taps, Dc, noise_rate, "fused_trigger_fwd")
+
+
+def fused_trigger_bwd(g, u, taps, Dc, noise_rate: float):
     """K2: (g_x, g_noise) for the cotangent ``g`` of K1's output."""
-    if _on_cpu(g, u, B, D, M):
-        return fused_trigger_bwd_plain(g, u, B, D, M, noise_rate)
-    n_planes, h = _check_cuda(g, B, D, M)
-    if u.shape != g.shape or u.dtype != torch.float32 or not u.is_contiguous():
-        raise ValueError("u must be a contiguous float32 tensor of g's shape")
-    gx, gn = torch.empty_like(g), torch.empty_like(g)
-    err = build().combat_fused_trigger_bwd(
-        g.data_ptr(), u.data_ptr(), D.data_ptr(), M.data_ptr(), B.data_ptr(),
-        gx.data_ptr(), gn.data_ptr(), n_planes, h, float(noise_rate), _stream(),
-    )
-    _raise_on(err, "fused_trigger_bwd")
-    LAUNCHES["fused_trigger_bwd"] += 1
-    return gx, gn
+    h = _check_trigger(g, u, taps, Dc)
+    if _on_cpu(g, u, taps, Dc):
+        return fused_trigger_bwd_plain(g, u, *_plain_operands(h, taps, Dc), noise_rate)
+    return _launch_trigger(build().combat_fused_trigger_bwd, g, u, taps, Dc, noise_rate, "fused_trigger_bwd")
 
 
 def low_freq_planes(x, D, M):
@@ -262,21 +304,21 @@ def low_freq_planes(x, D, M):
 
 class FusedTrigger(torch.autograd.Function):
     """``blur(clamp(x + low_freq(noise)*noise_rate, -1, 1))``: forward K1,
-    backward K2.  ``B`` (the blur for a drawn sigma) gets no gradient, as in
-    the JAX package's custom VJP."""
+    backward K2.  ``taps`` (the blur for a drawn sigma) get no gradient, as
+    the JAX package's custom VJP gives B none."""
 
     @staticmethod
-    def forward(ctx, x, noise, B, D, M, noise_rate: float):
-        out, u = fused_trigger_fwd(x.contiguous(), noise.contiguous(), B, D, M, noise_rate)
-        ctx.save_for_backward(u, B, D, M)
+    def forward(ctx, x, noise, taps, Dc, noise_rate: float):
+        out, u = fused_trigger_fwd(x.contiguous(), noise.contiguous(), taps, Dc, noise_rate)
+        ctx.save_for_backward(u, taps, Dc)
         ctx.noise_rate = noise_rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        u, B, D, M = ctx.saved_tensors
-        gx, gn = fused_trigger_bwd(g.contiguous(), u, B, D, M, ctx.noise_rate)
-        return gx, gn, None, None, None, None
+        u, taps, Dc = ctx.saved_tensors
+        gx, gn = fused_trigger_bwd(g.contiguous(), u, taps, Dc, ctx.noise_rate)
+        return gx, gn, None, None, None
 
 
 class LowFreq(torch.autograd.Function):

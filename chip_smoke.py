@@ -30,14 +30,21 @@ Phases, each printing one line with its seconds:
      images (2 steps) and eval; K3 launched, K1 and K2 not;
   5e. ``eval`` of 5c's victim with phase 4's generator: Clean Acc, Bd BA and
      Bd ASR finite and in [0, 100]; K1 launched, K2 not;
+  5f-5k. the attack variants, each at 256 images (2 steps, then eval) with
+     the launch counts set to 0 before it and held after it to the counts
+     in ``VARIANT_PHASES``: the WaNet, input-aware (K1/K2 and K3 routes),
+     imperceptible and multilabel generators, then the WaNet, input-aware,
+     imperceptible and multilabel victims on those generators;
   6. one alternated step and one victim step at full width on the card
-     against the same step on the CPU, from the same weights and draws;
+     against the same step on the CPU, from the same weights and draws, and
+     one input-aware and one multilabel step (bs 32);
   7. the steady-state alternated step at full width (bs 128), timed on the
      host clock around synchronised runs of 10 steps, on the three trigger
-     routes (K1/K2, K3, ATen) and in both metric modes, and the victim step
-     on the K1 and ATen routes.
-Then one JSON line of the kernels (launches on the main path, phases 3-5 and
-5c-5e, errors, times, bounds) and, last, ``{"ok": true, "device": {...}}``.
+     routes (K1/K2, K3, ATen) and in both metric modes, the victim step
+     on the K1 and ATen routes, and each variant's step on the K1/K2 route.
+Then one JSON line of the kernels (launches on the main path, phases 3-5,
+5c-5e and 5f-5k, errors, times, bounds) and, last,
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
 package is missing; any failed check or phase raises.  A hang ends after
@@ -440,6 +447,41 @@ def step_agreement() -> None:
     _agree("victim step", m_gpu, m_cpu, ("loss_ce",), ((c_gpu, c_cpu),))
 
 
+def variant_step_agreement() -> None:
+    """Phase 6, the variants: one full-width input-aware step and one
+    multilabel step (bs 32) on the card (K1/K2) and on the CPU (plain
+    versions), each from the same weights and draws."""
+    import torch
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.train import TrainState, draw_alternated, draw_inputaware, freeze, multistep_lr
+    from combat_tpu_torch.train import variants
+
+    cfg = apply_dataset_preset(Config())
+    n = 32
+    for variant, kind, draw in (("inputaware", "unet", draw_inputaware), ("multilabel", "cunet", draw_alternated)):
+        torch.manual_seed(5)
+        weights = [get_classifier(cfg), get_generator(cfg, kind), get_classifier(cfg), get_frequency_detector(cfg)]
+        gen = torch.Generator().manual_seed(6)
+        x = torch.rand((n, 3, 32, 32), generator=gen) * 2 - 1
+        x2 = torch.rand((n, 3, 32, 32), generator=gen) * 2 - 1
+        y = torch.randint(0, 10, (n,), generator=gen)
+        batch = (x, y, x2) if variant == "inputaware" else (x, y)
+        draws = draw(cfg, n, gen, "cpu")
+        results = {}
+        for dev in ("cuda", "cpu"):
+            C, G, cm, nf = (copy.deepcopy(m).to(dev) for m in weights)
+            sched = multistep_lr(0.01, (100,), 0.1, 10)
+            stateC, stateG = TrainState(C, sched), TrainState(G, sched)
+            step = getattr(variants, f"make_{variant}_train_step")(cfg, C, G)
+            m = step(stateC, stateG, freeze(cm), freeze(nf), tuple(t.to(dev) for t in batch), draws=_to(draws, dev))
+            results[dev] = ({k: float(v) for k, v in m.items()}, C.state_dict(), G.state_dict())
+        (m_gpu, c_gpu, g_gpu), (m_cpu, c_cpu, g_cpu) = results["cuda"], results["cpu"]
+        _agree(f"{variant} step", m_gpu, m_cpu, ("loss_ce", "loss_l2", "clean_model_loss"),
+               ((c_gpu, c_cpu), (g_gpu, g_cpu)))
+
+
 # Phase 7's trigger routes: (--pallas_trigger, --pallas_lowfreq).
 ROUTES = {"pallas_trigger": (True, False), "lowfreq_kernel": (False, True), "aten": (False, False)}
 
@@ -527,7 +569,37 @@ def step_times() -> dict:
         stateC.apply_gradients()
 
     record("victim parts/C forward, backward, SGD", _ms_per_step(c_update))
+    variant_step_times(x, y, gen, sched, record)
     return out
+
+
+def variant_step_times(x, y, gen, sched, record) -> None:
+    """Phase 7, the variants: each variant's train step at full width (bs
+    128, full metrics) on the K1/K2 route, and the WaNet victim step."""
+    import torch
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.train import TrainState, freeze
+    from combat_tpu_torch.train import variants
+
+    cfg = apply_dataset_preset(Config())
+    x2 = torch.rand(x.shape, generator=gen, device=x.device) * 2 - 1
+    poisoned = torch.rand((x.shape[0],), generator=gen, device=x.device) < 0.05
+    for variant, kind in (("wanet", "grid"), ("inputaware", "unet"), ("imperceptible", "unet"),
+                          ("multilabel", "cunet")):
+        torch.manual_seed(4)
+        C_, G = get_classifier(cfg).to(x.device), get_generator(cfg, kind).to(x.device)
+        cm, nf = freeze(get_classifier(cfg).to(x.device)), freeze(get_frequency_detector(cfg).to(x.device))
+        stateC, stateG = TrainState(C_, sched), TrainState(G, sched)
+        step = getattr(variants, f"make_{variant}_train_step")(cfg, C_, G)
+        batch = (x, y, x2) if variant == "inputaware" else (x, y)
+        record(f"variant/{variant}", _ms_per_step(lambda: step(stateC, stateG, cm, nf, batch, gen)))
+    torch.manual_seed(4)
+    C_, G = get_classifier(cfg).to(x.device), freeze(get_generator(cfg, "grid").to(x.device))
+    stateC = TrainState(C_, sched)
+    vstep = variants.make_wanet_victim_train_step(cfg, C_, G)
+    record("variant/victim wanet", _ms_per_step(lambda: vstep(stateC, (x, y, poisoned), gen)))
 
 
 def _no_grad(fn, *args, **kw):
@@ -543,6 +615,52 @@ def _to(obj, dev):
     if isinstance(obj, torch.Tensor):
         return obj.to(dev)
     return type(obj)(*(_to(v, dev) for v in obj))
+
+
+# Phases 5f-5k: (phase, entry point, saving prefix, flags, launches of K1, K2
+# and K3 predicted from the code).  256 images: 2 steps, then one eval batch
+# of the 51 test rows.
+_CLEAN = ["--load_checkpoint_clean", "smoke_clean"]
+VARIANT_PHASES = (
+    ("5f wanet", "train_generator_wanet", "smoke_wanet", _CLEAN, (0, 0, 0)),
+    ("5g inputaware", "train_generator_inputaware", "smoke_ia", _CLEAN, (2 * 3 + 2, 2 * 2, 0)),
+    ("5h inputaware K3", "train_generator_inputaware", "smoke_ia3",
+     _CLEAN + ["--pallas_trigger", "false", "--pallas_lowfreq", "true"], (0, 0, 2 * 5 + 2)),
+    ("5i imperceptible", "train_generator_imperceptible", "smoke_imp", _CLEAN, (2 * 2 + 1, 2, 0)),
+    ("5j multilabel", "train_generator_multilabel", "smoke_ml", _CLEAN, (2 * 2 + 10, 2, 0)),
+    ("5k victim wanet", "train_victim_wanet", "smoke_vwanet", ["--load_checkpoint", "smoke_wanet_clean"], (0, 0, 0)),
+    ("5k victim inputaware", "train_victim_inputaware", "smoke_via", ["--load_checkpoint", "smoke_ia_clean"],
+     (2 + 2, 0, 0)),
+    ("5k victim imperceptible", "train_victim_imperceptible", "smoke_vimp", ["--load_checkpoint", "smoke_imp_clean"],
+     (2 + 1, 0, 0)),
+    ("5k victim multilabel", "train_victim_multilabel", "smoke_vml",
+     ["--load_checkpoint", "smoke_ml_clean"] + _CLEAN, (2 * 2 + 10, 2, 0)),
+)
+KERNEL_NAMES = ("fused_trigger_fwd", "fused_trigger_bwd", "low_freq")
+
+
+def run_variant_phases(common, workdir) -> dict:
+    """Phases 5f-5k: each entry point with the launch counts set to 0 just
+    before it, held to its predicted counts just after; its checkpoint
+    finite, its best metrics percentages.  Returns each phase's counts."""
+    import importlib
+
+    from combat_tpu_torch.ops import trigger_kernels as tk
+
+    counts = {}
+    for phase, entry, prefix, flags, predicted in VARIANT_PHASES:
+        t0 = time.perf_counter()
+        main_fn = importlib.import_module(f"combat_tpu_torch.cli.{entry}").main
+        tk.reset_launch_counts()
+        best = main_fn(common + ["--synthetic_size", "256", "--saving_prefix", prefix] + flags)
+        counts[phase] = dict(tk.LAUNCHES)
+        check_checkpoint(f"{workdir}/{prefix}_clean/cifar10/cifar10_{prefix}_clean.pt")
+        if not all(0.0 <= v <= 100.0 for v in best.values()):  # also false for NaN
+            raise SystemExit(f"phase {phase}: best metrics are not percentages: {best}")
+        if counts[phase] != dict(zip(KERNEL_NAMES, predicted)):
+            raise SystemExit(f"phase {phase} launched {counts[phase]}, predicted {dict(zip(KERNEL_NAMES, predicted))}")
+        _phase(f"{phase} ({entry})", t0)
+    return counts
 
 
 def main(argv=None) -> int:
@@ -654,6 +772,9 @@ def main(argv=None) -> int:
                                           "--load_checkpoint", "smoke_atk_clean"])
         per_phase["5e"] = dict(tk.LAUNCHES)
         _phase("5e eval", t0)
+
+        # 5f-5k. the attack variants, each with its own counts
+        variant_launches = run_variant_phases(common, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if any(aten_launches.values()):
@@ -672,7 +793,9 @@ def main(argv=None) -> int:
     for ph, (used, unused) in expect.items():
         if per_phase[ph][used] == 0 or any(per_phase[ph][k] for k in unused):
             raise SystemExit(f"phase {ph} launched {per_phase[ph]}: expected {used} only")
-    launches = {k: n + sum(per_phase[ph][k] for ph in expect) for k, n in launches.items()}
+    print(f"  launches in phases 5f-5k (each as predicted): {json.dumps(variant_launches)}", flush=True)
+    launches = {k: n + sum(per_phase[ph][k] for ph in expect) + sum(c[k] for c in variant_launches.values())
+                for k, n in launches.items()}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")
@@ -680,6 +803,7 @@ def main(argv=None) -> int:
     # 6. the card's step against the CPU's
     t0 = time.perf_counter()
     step_agreement()
+    variant_step_agreement()
     _phase("6 card vs CPU step", t0)
 
     # 7. the steady-state step

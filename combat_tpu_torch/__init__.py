@@ -7,14 +7,18 @@ reader finds each counterpart:
   config      — typed Config + dataset presets + CLI flags (own copy)
   data        — numpy datasets: synthetic, CIFAR-10 bin / pickle, npz;
                 the victim stage's poison mask
-  ops         — DCT low-pass, Gaussian blur, train-time augmentation,
-                and the hand-written CUDA trigger kernels (trigger_kernels)
-  models      — PreActResNet18, UnetGenerator, FrequencyModel (NCHW)
-  attack      — trigger synthesis + target mapping
-  train       — optimizer/schedule, train state, fused steps, epoch loops
+  ops         — DCT low-pass, Gaussian blur, train-time augmentation, image
+                resampling (resize, grid sample, total variation), and the
+                hand-written CUDA trigger kernels (trigger_kernels)
+  models      — PreActResNet18, the trigger generators (UNet, UNet-BK, Grid,
+                Mixed, class-conditional UNet, fixed), FrequencyModel (NCHW)
+  attack      — trigger synthesis (additive, WaNet warp) + target mapping
+  train       — optimizer/schedule, train state, fused steps (base and the
+                WaNet, input-aware, imperceptible, multilabel variants),
+                epoch loops
   checkpoint  — torch.save checkpoints + conversion from JAX parameters
   cli         — train_clean_classifier, train_generator, train_victim and
-                eval entry points
+                eval, and the variants' train_generator_* / train_victim_*
 
 Entry points run on ``cuda:0`` unless the caller passes ``--device cpu``.
 """

@@ -11,6 +11,13 @@ with ``np.asarray`` first); the output is a ``state_dict`` of CPU tensors:
     to PyTorch's (C, H, W) order
   * BatchNorm ``scale/bias`` and ``mean/var`` -> ``weight/bias`` and
     ``running_mean/running_var`` (``num_batches_tracked`` set to 0)
+  * the flow head's ``fc1``/``fc2`` of the grid and mixed generators keep
+    their order: the JAX ``reshape((-1, 2, s, s))`` comes before its
+    transpose, so ``fc2``'s outputs are already the port's (2, s, s)
+  * the class-conditional UNet's top-level convs go under ``enc``; its
+    ``conv0_1`` reads ``nf + num_classes`` channels in the JAX concat order
+    ``[f0, one_hot]``, which is the port's
+  * the fixed trigger goes from (H, W, C) to (C, H, W)
 """
 
 from __future__ import annotations
@@ -76,6 +83,33 @@ def _unet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _grid(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params["enc"].items():
+        _conv(sd, f"enc.{name}", p)
+    for fc in ("fc1", "fc2"):
+        _dense(sd, f"head.{fc}", params[fc])
+    return sd
+
+
+def _mixed(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return {**_unet(params, stats), **_grid(params, stats)}
+
+
+def _cunet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if name != "dec":
+            _conv(sd, f"enc.{name}", p)
+    for name, p in params["dec"].items():
+        _conv(sd, f"dec.{name}", p)
+    return sd
+
+
+def _fixed(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return {"trigger": _t(np.transpose(params["trigger"], (2, 0, 1)))}
+
+
 def _frequency(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for i in range(6):
@@ -85,12 +119,22 @@ def _frequency(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
-_CONVERTERS = {"preactresnet18": _preact_resnet, "unet": _unet, "frequency": _frequency}
+_CONVERTERS = {
+    "preactresnet18": _preact_resnet,
+    "unet": _unet,
+    "unet_bk": _unet,
+    "grid": _grid,
+    "mixed": _mixed,
+    "cunet": _cunet,
+    "fixed": _fixed,
+    "frequency": _frequency,
+}
 
 
 def from_jax_params(tree: Tree, model_kind: str) -> Dict[str, torch.Tensor]:
-    """Flax variables (numpy) of ``model_kind`` ("preactresnet18", "unet",
-    "frequency") -> the port model's ``state_dict``."""
+    """Flax variables (numpy) of ``model_kind`` (a key of ``_CONVERTERS``: the
+    classifier, the detector or a generator kind) -> the port model's
+    ``state_dict``."""
     if model_kind not in _CONVERTERS:
         raise ValueError(f"unknown model kind {model_kind!r}; options: {sorted(_CONVERTERS)}")
     return _CONVERTERS[model_kind](tree["params"], tree.get("batch_stats", {}))

@@ -1,6 +1,7 @@
 """Victim training with a frozen trigger generator (the port of
-``combat_tpu/cli/_victim.py`` for the base attack; the WaNet and input-aware
-victims are a later slice).
+``combat_tpu/cli/_victim.py``): one run loop for the base (and
+imperceptible), WaNet and input-aware victims; the multilabel victim
+continues alternated training instead (``_alternated.py``).
 
 The run poisons a fixed subset of the training split (``poison_flags``),
 loads G from the generator run's checkpoint and trains C from scratch on the
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -40,8 +41,12 @@ from .common import device_dataset, fmt_pct, setup_device, setup_run_dirs, steps
 @dataclass(frozen=True)
 class VictimSpec:
     name: str
+    generator_kind: str = "unet"
     make_train_step: Callable = make_victim_train_step
     make_eval_step: Callable = make_victim_eval_step
+    eval_pair: bool = False  # a second test stream for the cross accuracy
+    track_cross: bool = False
+    extra_ckpt: Optional[Callable[[Config], Dict]] = None  # more checkpoint keys
 
 
 def run_victim(cfg: Config, spec: VictimSpec):
@@ -58,7 +63,7 @@ def run_victim(cfg: Config, spec: VictimSpec):
 
     torch.manual_seed(cfg.seed)
     C = get_classifier(cfg).to(device)
-    G = get_generator(cfg, "unet").to(device)
+    G = get_generator(cfg, spec.generator_kind).to(device)
     stateC = TrainState(C, multistep_lr(cfg.lr_C, cfg.schedulerC_milestones, cfg.schedulerC_lambda, spe))
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
@@ -75,7 +80,10 @@ def run_victim(cfg: Config, spec: VictimSpec):
     path = ckpt_path(cfg.checkpoints, f"{mode}_clean", cfg.dataset)
     ckpt_folder = os.path.dirname(path)
     best = {"best_clean_acc": 0.0, "best_bd_acc": 0.0}
+    if spec.track_cross:
+        best["best_cross_acc"] = 0.0
     epoch_current = 0
+    extra = spec.extra_ckpt(cfg) if spec.extra_ckpt else {}
 
     def payload_of(epoch):
         return {
@@ -84,6 +92,7 @@ def run_victim(cfg: Config, spec: VictimSpec):
             "optimizerC": stateC.optimizer.state_dict(),
             "netG": G.state_dict(),
             **best,
+            **extra,
             "scheduler_steps_per_epoch": spe,
             "epoch_current": epoch,
         }
@@ -117,20 +126,30 @@ def run_victim(cfg: Config, spec: VictimSpec):
             )
         n = m["sample"]
         ips = n / t.seconds
-        em = metrics_to_host(eval_epoch(eval_step, (), timgs, tlabs, cfg.bs, generator=generator))
+        em = metrics_to_host(
+            eval_epoch(eval_step, (), timgs, tlabs, cfg.bs, with_pair=spec.eval_pair, generator=generator)
+        )
         acc_clean = em["clean_correct"] * 100 / em["clean_sample"]
         acc_bd = em["bd_correct"] * 100 / max(em["bd_sample"], 1.0)
-        print(
+        line = (
             f"Epoch {epoch + 1}: CE Loss: {fmt_pct(m['loss_ce'] / n)} | "
             f"Train Acc: {fmt_pct(m['clean_correct'] * 100 / n)} | "
             f"Clean Acc: {fmt_pct(acc_clean)} - Best: {fmt_pct(best['best_clean_acc'])} | "
-            f"Bd Acc: {fmt_pct(acc_bd)} - Best: {fmt_pct(best['best_bd_acc'])} | {ips:.0f} img/s"
+            f"Bd Acc: {fmt_pct(acc_bd)} - Best: {fmt_pct(best['best_bd_acc'])}"
         )
+        scalars = {"Clean": acc_clean, "Bd": acc_bd}
+        if spec.track_cross:
+            cross = em["cross_correct"] * 100 / max(em["bd_sample"], 1.0)
+            line += f" | Cross Acc: {fmt_pct(cross)}"
+            scalars["Cross"] = cross
+        print(line + f" | {ips:.0f} img/s")
         logger.log(epoch, {"loss_ce": m["loss_ce"] / n, "Clean": m["clean_correct"] * 100 / n, "images_per_sec": ips})
-        logger.log(epoch, {"Clean": acc_clean, "Bd": acc_bd}, group="test")
+        logger.log(epoch, scalars, group="test")
         if best_gate_clean(acc_clean, best["best_clean_acc"]):
             print(" Saving...")
             best["best_clean_acc"], best["best_bd_acc"] = acc_clean, acc_bd
+            if spec.track_cross:
+                best["best_cross_acc"] = cross
             save_checkpoint(path, payload_of(epoch))
     logger.close()
     return best

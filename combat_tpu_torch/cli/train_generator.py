@@ -18,11 +18,13 @@ Example (synthetic data; on the card unless --device cpu):
 from __future__ import annotations
 
 from ..config import from_args
-from ._alternated import run_alternated
+from ._alternated import AlternatedSpec, run_alternated
+
+SPEC = AlternatedSpec(name="attack")
 
 
 def run(cfg):
-    return run_alternated(cfg, "attack")
+    return run_alternated(cfg, SPEC)
 
 
 def main(argv=None):

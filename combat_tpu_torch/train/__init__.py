@@ -1,4 +1,12 @@
-from .loop import epoch_permutation, eval_epoch, metrics_to_host, padded_eval_batches, train_epoch_alternated, train_epoch_classifier
+from .loop import (
+    epoch_permutation,
+    eval_epoch,
+    metrics_to_host,
+    padded_eval_batches,
+    train_epoch_alternated,
+    train_epoch_alternated_pair,
+    train_epoch_classifier,
+)
 from .schedules import multistep_lr, multistep_lr_resume, sgd_torch
 from .state import TrainState, freeze
 from .steps import (
@@ -14,4 +22,22 @@ from .steps import (
     make_clean_train_step,
     make_victim_eval_step,
     make_victim_train_step,
+)
+from .variants import (
+    InputawareDraws,
+    PairSigmas,
+    WanetDraws,
+    draw_inputaware,
+    draw_pair_sigmas,
+    draw_wanet,
+    make_imperceptible_train_step,
+    make_inputaware_eval_step,
+    make_inputaware_train_step,
+    make_inputaware_victim_eval_step,
+    make_multilabel_eval_step,
+    make_multilabel_train_step,
+    make_wanet_eval_step,
+    make_wanet_train_step,
+    make_wanet_victim_eval_step,
+    make_wanet_victim_train_step,
 )

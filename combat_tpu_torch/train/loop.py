@@ -65,6 +65,35 @@ def train_epoch_alternated(
     return metrics
 
 
+def train_epoch_alternated_pair(
+    step_fn: Callable,
+    stateC,
+    stateG,
+    clean_model,
+    netF,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    generator: Optional[torch.Generator],
+    bs: int,
+    perm: Optional[torch.Tensor] = None,
+    perm2: Optional[torch.Tensor] = None,
+) -> Metrics:
+    """An alternated epoch with a second, independent shuffle of the split
+    (the input-aware variant's two dataloaders, reference
+    ``train_generator_inputaware.py:535-538``): each batch reaches the step
+    as ``(x, y, x2)``, the ragged tail too.  Either permutation may be
+    passed in."""
+    n, device = images.shape[0], images.device
+    full, tail = epoch_permutation(n, bs, generator, device, perm)
+    full2, tail2 = epoch_permutation(n, bs, generator, device, perm2)
+    metrics = None
+    for idx, idx2 in zip((*full, tail), (*full2, tail2)):
+        if idx.numel():
+            m = step_fn(stateC, stateG, clean_model, netF, (images[idx], labels[idx], images[idx2]), generator)
+            metrics = _accumulate(metrics, m)
+    return metrics
+
+
 def train_epoch_classifier(
     step_fn: Callable,
     stateC,
@@ -88,13 +117,27 @@ def train_epoch_classifier(
 
 
 def eval_epoch(
-    step_fn: Callable, step_args: Tuple, images: torch.Tensor, labels: torch.Tensor, bs: int, **step_kw
+    step_fn: Callable,
+    step_args: Tuple,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    bs: int,
+    with_pair: bool = False,
+    pair_perm: Optional[torch.Tensor] = None,
+    **step_kw,
 ) -> Metrics:
-    """Run an eval step over padded whole batches; exact masked sums."""
-    idx, valid = padded_eval_batches(images.shape[0], bs, images.device)
+    """Run an eval step over padded whole batches; exact masked sums.
+    ``with_pair`` adds a second, shuffled image stream, ``images[pair_perm[ix]]``
+    beside each batch (the input-aware cross accuracy); the permutation is
+    drawn from ``step_kw``'s ``generator`` unless passed in."""
+    n = images.shape[0]
+    idx, valid = padded_eval_batches(n, bs, images.device)
+    if with_pair and pair_perm is None:
+        pair_perm = torch.randperm(n, generator=step_kw.get("generator"), device=images.device)
     metrics = None
     for ix, vd in zip(idx, valid):
-        metrics = _accumulate(metrics, step_fn(*step_args, (images[ix], labels[ix], vd), **step_kw))
+        batch = (images[ix], labels[ix], images[pair_perm[ix]], vd) if with_pair else (images[ix], labels[ix], vd)
+        metrics = _accumulate(metrics, step_fn(*step_args, batch, **step_kw))
     return metrics
 
 

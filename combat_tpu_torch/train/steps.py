@@ -197,6 +197,25 @@ def make_alternated_train_step(cfg: Config, C: nn.Module, G: nn.Module):
     return step
 
 
+def attack_eval_metrics(cfg: Config, C, clean_model, netF, x, y, valid, x_bd) -> Metrics:
+    """Clean, backdoor, detector and clean-model counts of an attack eval
+    batch, in eval mode: clean counts over the valid rows, the rest over
+    the valid non-target rows."""
+    bd_targets = create_targets_bd(y, cfg.attack_mode, cfg.target_label, cfg.num_classes)
+    vf, nf = valid.float(), ((y != cfg.target_label) & valid).float()
+    cm_bd = clean_model(x_bd)
+    return {
+        "clean_sample": vf.sum(),
+        "bd_sample": nf.sum(),
+        "clean_correct": _count(C(x), y, vf),
+        "bd_correct": _count(C(x_bd), bd_targets, nf),
+        "F_correct": _count(netF(detector_features(x_bd)), torch.ones_like(y), nf),
+        "clean_model_correct": _count(clean_model(x), y, vf),
+        "clean_model_bd_ba": _count(cm_bd, y, nf),
+        "clean_model_bd_asr": _count(cm_bd, bd_targets, nf),
+    }
+
+
 def make_attack_eval_step(cfg: Config, C: nn.Module, G: nn.Module):
     """Eval-side metrics over non-target test rows
     (reference ``train_generator.py:321-431``)."""
@@ -213,25 +232,8 @@ def make_attack_eval_step(cfg: Config, C: nn.Module, G: nn.Module):
         x, y, valid = batch
         C.eval()
         G.eval()
-        bd_targets = create_targets_bd(y, cfg.attack_mode, cfg.target_label, cfg.num_classes)
-        preds_clean = C(x)
-        ntrg = (y != cfg.target_label) & valid
         x_bd = trig(x, G(x), sigma_draw=sigma_draw, generator=generator)
-        preds_bd = C(x_bd)
-        pred_F = netF(detector_features(x_bd))
-        cm_clean = clean_model(x)
-        cm_bd = clean_model(x_bd)
-        vf, nf = valid.float(), ntrg.float()
-        return {
-            "clean_sample": vf.sum(),
-            "bd_sample": nf.sum(),
-            "clean_correct": _count(preds_clean, y, vf),
-            "bd_correct": _count(preds_bd, bd_targets, nf),
-            "F_correct": _count(pred_F, torch.ones_like(y), nf),
-            "clean_model_correct": _count(cm_clean, y, vf),
-            "clean_model_bd_ba": _count(cm_bd, y, nf),
-            "clean_model_bd_asr": _count(cm_bd, bd_targets, nf),
-        }
+        return attack_eval_metrics(cfg, C, clean_model, netF, x, y, valid, x_bd)
 
     return step
 

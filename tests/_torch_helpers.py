@@ -14,6 +14,7 @@ import torch
 
 from combat_tpu_torch.ops.augment import AugDraws
 from combat_tpu_torch.train.steps import AlternatedDraws
+from combat_tpu_torch.train.variants import InputawareDraws, PairSigmas, WanetDraws
 
 
 def nchw(a) -> torch.Tensor:
@@ -66,6 +67,45 @@ def jax_alternated_draws(key, cfg, n: int) -> AlternatedDraws:
         aug_g_cm=aug(k[6]),
         aug_clean=aug(k[7]),
     )
+
+
+def jax_wanet_draws(key, cfg, n: int) -> WanetDraws:
+    """The draws of ``make_wanet_train_step`` (variants.py: ``k = split(key,
+    8)``; ``k[0]`` the poison gate, ``k[1..5]`` the augmentations)."""
+    k = jax.random.split(key, 8)
+    aug = lambda kk: jax_aug_draws(kk, n, cfg.random_crop, float(cfg.random_rotation))  # noqa: E731
+    return WanetDraws(
+        poison=torch.from_numpy(np.array(jax.random.bernoulli(k[0], cfg.pc, (n,)))),
+        aug_c=aug(k[1]), aug_cm=aug(k[2]), aug_g=aug(k[3]), aug_g_cm=aug(k[4]), aug_clean=aug(k[5]),
+    )
+
+
+def jax_inputaware_draws(key, cfg, n: int) -> InputawareDraws:
+    """The draws of ``make_inputaware_train_step`` (variants.py: ``k =
+    split(key, 10)``; ``k[4]``, ``k[5]`` the two G-step sigmas, ``k[6..8]``
+    the G-step augmentations, ``k[9]`` the clean metric)."""
+    k = jax.random.split(key, 10)
+    aug = lambda kk: jax_aug_draws(kk, n, cfg.random_crop, float(cfg.random_rotation))  # noqa: E731
+    return InputawareDraws(
+        sigma_c=jax_sigma(k[0], cfg.sigma),
+        poison=torch.from_numpy(np.array(jax.random.bernoulli(k[1], cfg.pc, (n,)))),
+        aug_c=aug(k[2]),
+        aug_cm=aug(k[3]),
+        sigma_g=jax_sigma(k[4], cfg.sigma),
+        sigma_cross=jax_sigma(k[5], cfg.sigma),
+        aug_g=aug(k[6]),
+        aug_cross=aug(k[7]),
+        aug_g_cm=aug(k[8]),
+        aug_clean=aug(k[9]),
+    )
+
+
+def jax_pair_sigmas(key, cfg, n: int) -> PairSigmas:
+    """The sigmas of the input-aware eval steps (``k = split(key, n)``, n 3
+    in the attack eval and 2 in the victim eval; the trigger of G(x) takes
+    ``k[0]``, the cross trigger ``k[1]``)."""
+    k = jax.random.split(key, n)
+    return PairSigmas(jax_sigma(k[0], cfg.sigma), jax_sigma(k[1], cfg.sigma))
 
 
 def to_numpy_tree(tree):

@@ -193,3 +193,61 @@ def test_victim_step_launches_k1_not_k2_and_matches_the_plain_route(dev):
     for k, v in out["plain"][1].items():
         if v.is_floating_point():
             torch.testing.assert_close(out["k1"][1][k], v, atol=1e-4, rtol=0, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "variant,launches",
+    [("inputaware", {"fused_trigger_fwd": 3, "fused_trigger_bwd": 2, "low_freq": 0}),
+     ("multilabel", {"fused_trigger_fwd": 2, "fused_trigger_bwd": 1, "low_freq": 0})],
+)
+def test_variant_step_on_the_card_matches_the_cpu(dev, monkeypatch, variant, launches):
+    """One full-width input-aware or multilabel step on the card (K1/K2)
+    against the same step on the CPU (the plain versions), from the same
+    weights and draws: the losses, and C's and G's updated parameters,
+    within 1e-4.  Input-aware triggers three times a step and backpropagates
+    two of them; multilabel triggers twice and backpropagates one.  cuDNN's
+    TF32 is off, as the entry points set it, so the convolutions are float32."""
+    import copy
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.train import TrainState, draw_alternated, draw_inputaware, freeze, multistep_lr
+    from combat_tpu_torch.train import variants
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = apply_dataset_preset(Config())
+    torch.manual_seed(0)
+    kind = "cunet" if variant == "multilabel" else "unet"
+    weights = [get_classifier(cfg), get_generator(cfg, kind), get_classifier(cfg), get_frequency_detector(cfg)]
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((16, 3, H, H), generator=gen) * 2 - 1
+    x2 = torch.rand((16, 3, H, H), generator=gen) * 2 - 1
+    y = torch.arange(16) % 4
+    draws = (draw_inputaware if variant == "inputaware" else draw_alternated)(cfg, 16, gen, "cpu")
+    batch = (x, y, x2) if variant == "inputaware" else (x, y)
+    make = getattr(variants, f"make_{variant}_train_step")
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        C, G, cm, nf = (copy.deepcopy(m).to(d) for m in weights)
+        sched = multistep_lr(0.01, (100,), 0.1, 10)
+        stateC, stateG = TrainState(C, sched), TrainState(G, sched)
+        before = dict(tk.LAUNCHES)
+        moved = type(draws)(*(_to(v, d) for v in draws))
+        m = make(cfg, C, G)(stateC, stateG, freeze(cm), freeze(nf), tuple(t.to(d) for t in batch), draws=moved)
+        out[d.type] = (m, C.state_dict(), G.state_dict(), {k: tk.LAUNCHES[k] - n for k, n in before.items()})
+    assert out["cuda"][3] == launches and not any(out["cpu"][3].values())
+    for k in ("loss_ce", "loss_l2", "clean_model_loss"):
+        torch.testing.assert_close(out["cuda"][0][k].cpu(), out["cpu"][0][k], atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    for i in (1, 2):
+        for k, v in out["cpu"][i].items():
+            if v.is_floating_point():
+                torch.testing.assert_close(out["cuda"][i][k].cpu(), v, atol=1e-4, rtol=0,
+                                           msg=lambda m, k=k: f"{k}: {m}")
+
+
+def _to(obj, d):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(d)
+    return type(obj)(*(_to(v, d) for v in obj))

@@ -134,7 +134,7 @@ def test_registry_raises_for_later_slices():
     for make in (
         lambda: get_classifier(cfg.replace(model="vgg16")),
         lambda: get_classifier(apply_dataset_preset(Config(dataset="celeba"))),
-        lambda: get_generator(cfg, "grid"),
+        lambda: get_classifier(apply_dataset_preset(Config(dataset="mnist"))),
         lambda: get_frequency_detector(cfg.replace(F_model="original_dropout")),
     ):
         with pytest.raises(NotImplementedError, match="later slice"):

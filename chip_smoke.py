@@ -14,7 +14,12 @@ Phases, each printing one line with its seconds:
      autograd), and timed with CUDA events at the slice's shapes (bs 128,
      3 x 32 x 32 f32) beside its plain version and the same function as
      dense ``torch.matmul``s (``library_ms``); also at 64 px, and their
-     device durations traced with ``torch.profiler``;
+     device durations traced with ``torch.profiler``; then the tiled
+     kernels above 64 px held to their plain versions at 224 px (96
+     planes, imagenet10's bs 32) and at H = 100, and timed at 224 px beside
+     their plain versions, a ``torch.matmul`` chain with the projector P
+     and their bound, with their traced device time summed over each
+     chain's launches (the ``h224`` entry of each kernel's row);
   3. ``train_clean_classifier`` at full width (PreActResNet18, bs 128,
      1024 synthetic images: 8 steps, then eval);
   4. ``train_generator`` on that checkpoint, fused trigger (K1/K2): 8
@@ -35,15 +40,26 @@ Phases, each printing one line with its seconds:
      in ``VARIANT_PHASES``: the WaNet, input-aware (K1/K2 and K3 routes),
      imperceptible and multilabel generators, then the WaNet, input-aware,
      imperceptible and multilabel victims on those generators;
+  5l-5q. celeba and imagenet10, each phase held to the counts in
+     ``LARGE_PHASES``: 5l the celeba clean classifier and generator (64 px,
+     ResNet18, bs 128, 256 images), the generator on the committed celeba
+     detector; then imagenet10 (224 px, ResNet18, bs 32, 64 images: 2
+     steps, then eval), through the tiled kernels: 5m the clean
+     classifier, 5n the generator (K1/K2), 5o the generator on K3, 5p the
+     victim (K1), 5q the final eval;
   6. one alternated step and one victim step at full width on the card
-     against the same step on the CPU, from the same weights and draws, and
-     one input-aware and one multilabel step (bs 32);
+     against the same step on the CPU, from the same weights and draws, one
+     input-aware and one multilabel step (bs 32), and one alternated step
+     at 96 px (ResNet18, bs 4) where the tiled K1/K2 run inside the step;
   7. the steady-state alternated step at full width (bs 128), timed on the
      host clock around synchronised runs of 10 steps, on the three trigger
      routes (K1/K2, K3, ATen) and in both metric modes, the victim step
-     on the K1 and ATen routes, and each variant's step on the K1/K2 route.
+     on the K1 and ATen routes, and each variant's step on the K1/K2 route;
+     then (5 steps each) the imagenet10 alternated step at 224 px, bs 32 on
+     the K1/K2 and ATen routes with the K1/K2 step's peak device memory,
+     the imagenet10 victim step, and the celeba alternated step (bs 128).
 Then one JSON line of the kernels (launches on the main path, phases 3-5,
-5c-5e and 5f-5k, errors, times, bounds) and, last,
+5c-5e, 5f-5k and 5l-5q, errors, times, bounds) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
@@ -54,6 +70,7 @@ package is missing; any failed check or phase raises.  A hang ends after
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import faulthandler
 import json
@@ -69,6 +86,7 @@ F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_TOL = 1e-4  # float32 FMA in another order than cuBLAS; values O(1)
 BS, C, H = 128, 3, 32
 RATIO, NOISE_RATE = 0.65, 0.08
+H_LARGE, PLANES_LARGE = 224, 32 * 3  # imagenet10: bs 32, 3 x 224 x 224
 
 
 def _phase(name: str, t0: float) -> None:
@@ -221,6 +239,8 @@ def compare_kernels():
 
     errors = check_fused_trigger()
     errors["low_freq"] = check_low_freq()
+    for name, e in check_tiled().items():
+        errors[name] = max(errors[name], e)
     out, u = tk.fused_trigger_fwd(x, noise, taps, Dc, NOISE_RATE)
     low = tk.low_freq_planes(x, RATIO)
     ref_out, ref_u = tk.fused_trigger_fwd_plain(x, noise, B, D, M, NOISE_RATE)
@@ -261,6 +281,7 @@ def compare_kernels():
         ),
     }
     time_trigger_variants(taps, Dc)
+    large = time_tiled()
     # Bytes: each input read once, each output written once; K1/K2 read D_c
     # and the taps once per call, K3 the projector P.  Operations: the least
     # the function needs per plane (one FMA = 2).  The low-pass keeps only
@@ -292,7 +313,7 @@ def compare_kernels():
         rows[name] = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
             "launches": 0, "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, "h224": large[name],
         }
         print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f}, dense matmuls {library_ms:.4f}, "
               f"bound {bound_ms:.4f} by {bound_by})", flush=True)
@@ -358,6 +379,139 @@ def _traced_us(calls: dict, reps: int = 50) -> dict:
         out[key] = (f"mean {sum(us) / len(us):.3f} us (min {min(us):.3f}, max {max(us):.3f}, n {len(us)})"
                     if us else "not measured (no device event in the trace)")
     return out
+
+
+def check_tiled() -> dict:
+    """K1-K3 above 64 px (the tiled kernels of ``csrc/trigger_tiled.cuh``)
+    against their plain versions: at 224 px (96 planes, imagenet10's bs 32)
+    and at H = 100 (not a multiple of the 64-wide tile; 383 planes).  K1/K2
+    forward and backward with 3 and 5 taps (sigma 0.9: B^T != B), K3
+    forward and through autograd.  Returns the largest error of each."""
+    import torch
+
+    from combat_tpu_torch.ops import trigger_kernels as tk
+    from combat_tpu_torch.ops.blur import blur_matrix, gaussian_kernel_1d
+    from combat_tpu_torch.ops.dct import low_freq
+
+    worst = dict.fromkeys(KERNEL_NAMES, 0.0)
+    for h, planes in ((H_LARGE, PLANES_LARGE), (100, BS * C - 1)):
+        x, noise, g = (t[:planes] for t in _trigger_inputs(h, seed=h))
+        D, M = tk.trigger_operands(h, RATIO, "cuda")
+        Dc = tk.truncated_dct(h, RATIO, "cuda")
+        for k in (3, 5):
+            taps = gaussian_kernel_1d(k, 0.9, device="cuda")
+            B = blur_matrix(taps, h)
+            out, u = tk.fused_trigger_fwd(x, noise, taps, Dc, NOISE_RATE)
+            gx, gn = tk.fused_trigger_bwd(g, u, taps, Dc, NOISE_RATE)
+            ref_out, ref_u = tk.fused_trigger_fwd_plain(x, noise, B, D, M, NOISE_RATE)
+            ref_gx, ref_gn = tk.fused_trigger_bwd_plain(g, u, B, D, M, NOISE_RATE)  # on K1's own u
+            fwd = max(_err(out, ref_out), _err(u, ref_u))
+            bwd = max(_err(gx, ref_gx), _err(gn, ref_gn))
+            print(f"  tiled K1/K2 H={h} k={k} planes={planes}: fwd {fwd:.3e}, bwd {bwd:.3e}", flush=True)
+            worst["fused_trigger_fwd"] = max(worst["fused_trigger_fwd"], fwd)
+            worst["fused_trigger_bwd"] = max(worst["fused_trigger_bwd"], bwd)
+        xt, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        out = low_freq(xt, h, RATIO, use_kernel=True)
+        (gx,) = torch.autograd.grad(out, xt, grad_outputs=g)
+        ref = tk.low_freq_plain(xp, D, M)
+        (ref_gx,) = torch.autograd.grad(ref, xp, grad_outputs=g)
+        err = max(_err(out, ref), _err(gx, ref_gx))
+        print(f"  tiled K3 H={h} planes={planes}: fwd and autograd {err:.3e}", flush=True)
+        worst["low_freq"] = max(worst["low_freq"], err)
+    return worst
+
+
+def time_tiled() -> dict:
+    """K1-K3 at 224 px, 96 planes (imagenet10, bs 32), each beside its plain
+    version and one PyTorch call chain of the same function (the projector's
+    two products as batched ``torch.matmul``, the blur as dense ``B``
+    products, TF32 off), with its device time from a profiler trace summed
+    over the chain's launches and its bound.  Returns a dict per kernel."""
+    import torch
+
+    from combat_tpu_torch.ops import trigger_kernels as tk
+    from combat_tpu_torch.ops.blur import blur_matrix, gaussian_kernel_1d
+
+    h, planes = H_LARGE, PLANES_LARGE
+    x, noise, g = (t[:planes].contiguous() for t in _trigger_inputs(h, seed=9))
+    taps = gaussian_kernel_1d(3, 0.9, device="cuda")
+    B = blur_matrix(taps, h)
+    D, M = tk.trigger_operands(h, RATIO, "cuda")
+    Dc = tk.truncated_dct(h, RATIO, "cuda")
+    P = tk.lowpass_projector(h, RATIO, "cuda")
+    u = tk.fused_trigger_fwd(x, noise, taps, Dc, NOISE_RATE)[1]
+
+    def lib_fwd():  # low_freq(n) = P n P once the DC passes
+        uu = torch.matmul(P, torch.matmul(noise, P)) * NOISE_RATE + x
+        return torch.matmul(B, torch.matmul(uu.clamp(-1.0, 1.0), B.T)), uu
+
+    def lib_bwd():
+        gu = torch.matmul(B.T, torch.matmul(g, B)) * ((u >= -1.0) & (u <= 1.0))
+        return gu, torch.matmul(P, torch.matmul(gu, P)) * NOISE_RATE
+
+    def lib_low():
+        return torch.matmul(P, torch.matmul(x, P))
+
+    ref_fwd = tk.fused_trigger_fwd_plain(x, noise, B, D, M, NOISE_RATE)
+    ref_bwd = tk.fused_trigger_bwd_plain(g, u, B, D, M, NOISE_RATE)
+    lib_err = max(*(_err(a, b) for a, b in zip(lib_fwd(), ref_fwd)), *(_err(a, b) for a, b in zip(lib_bwd(), ref_bwd)),
+                  _err(lib_low(), tk.low_freq_plain(x, D, M)))
+    print(f"  224 px library chain: max |library - plain| = {lib_err:.3e} (tolerance 1e-3)", flush=True)
+    if not lib_err <= 1e-3:
+        raise SystemExit(f"the 224 px library chain disagrees with the plain version: {lib_err}")
+    calls = {
+        "fused_trigger_fwd": (lambda: tk.fused_trigger_fwd(x, noise, taps, Dc, NOISE_RATE),
+                              lambda: tk.fused_trigger_fwd_plain(x, noise, B, D, M, NOISE_RATE), lib_fwd),
+        "fused_trigger_bwd": (lambda: tk.fused_trigger_bwd(g, u, taps, Dc, NOISE_RATE),
+                              lambda: tk.fused_trigger_bwd_plain(g, u, B, D, M, NOISE_RATE), lib_bwd),
+        "low_freq": (lambda: tk.low_freq_planes(x, RATIO), lambda: tk.low_freq_plain(x, D, M), lib_low),
+    }
+    # Bytes: each input and output once, and P.  Operations: the two
+    # products with P (2 H^3 FMA a plane, fewer than the truncated chain's
+    # 2cH^2 + 2c^2H at c = 145), the 3-tap band on each side, elementwise.
+    c = Dc.shape[0]
+    lowpass = 2 * min(2 * c * h * h + 2 * c * c * h, 2 * h ** 3)
+    blur = 2 * (2 * h * h * taps.numel())
+    plane_bytes, mat_bytes = planes * h * h * 4, h * h * 4
+    work = {
+        "fused_trigger_fwd": (4 * plane_bytes + mat_bytes + taps.numel() * 4, (lowpass + blur + 4 * h * h) * planes),
+        "fused_trigger_bwd": (4 * plane_bytes + mat_bytes + taps.numel() * 4, (lowpass + blur + 3 * h * h) * planes),
+        "low_freq": (2 * plane_bytes + mat_bytes, lowpass * planes),
+    }
+    out = {}
+    for name, (kernel, plain, lib) in calls.items():
+        bound_ms, bound_by = _bound_ms(*work[name])
+        traced = _traced_chain_us(kernel)
+        out[name] = {"planes": planes, "H": h, "ms": _event_ms(kernel), "traced_us": traced, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "plain_ms": _event_ms(plain), "library_ms": _event_ms(lib)}
+        print(f"  {name} at {h} px, {planes} planes: {out[name]['ms']:.4f} ms (traced {traced}; plain "
+              f"{out[name]['plain_ms']:.4f}, library {out[name]['library_ms']:.4f}, bound {bound_ms:.4f} by "
+              f"{bound_by})", flush=True)
+    return out
+
+
+def _traced_chain_us(fn, reps: int = 20) -> dict:
+    """Device time (us) of one call of ``fn``, a tiled kernel's chain of
+    launches, from a ``torch.profiler`` trace of ``reps`` calls: the sum over
+    its launches, and the share of the products and of the band passes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {"product": 0.0, "band": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "tiled::" in e.name:
+            parts["product" if "product_kernel" in e.name else "band"] += e.time_range.elapsed_us()
+            n += 1
+    if not n:
+        return {"total": None, "note": "not measured (no device event in the trace)"}
+    return {"total": sum(parts.values()) / reps, **{k: v / reps for k, v in parts.items()}, "launches": n / reps}
 
 
 def check_checkpoint(path: str) -> dict:
@@ -447,6 +601,43 @@ def step_agreement() -> None:
     _agree("victim step", m_gpu, m_cpu, ("loss_ce",), ((c_gpu, c_cpu),))
 
 
+def large_step_agreement() -> None:
+    """Phase 6 above 64 px: one alternated step at 96 px (ResNet18, UNet nf
+    64, bs 4, celeba's 8 classes) on the card, where the tiled K1/K2 run
+    inside the step, against the same step on the CPU (the plain versions),
+    from the same weights and draws."""
+    import torch
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.ops import trigger_kernels as tk
+    from combat_tpu_torch.train import TrainState, draw_alternated, freeze, make_alternated_train_step, multistep_lr
+
+    h, n = 96, 4
+    cfg = apply_dataset_preset(Config(dataset="celeba")).replace(input_height=h, input_width=h, bs=n)
+    torch.manual_seed(7)
+    weights = [get_classifier(cfg), get_generator(cfg), get_classifier(cfg), get_frequency_detector(cfg)]
+    gen = torch.Generator().manual_seed(8)
+    x = torch.rand((n, 3, h, h), generator=gen) * 2 - 1
+    y = torch.tensor([0, 0, 1, 2])  # target-class rows and others
+    draws = draw_alternated(cfg, n, gen, "cpu")
+    results = {}
+    for dev in ("cuda", "cpu"):
+        C, G, cm, nf = (copy.deepcopy(m).to(dev) for m in weights)
+        sched = multistep_lr(0.01, (100,), 0.1, 10)
+        stateC, stateG = TrainState(C, sched), TrainState(G, sched)
+        before = dict(tk.LAUNCHES)
+        m = make_alternated_train_step(cfg, C, G)(stateC, stateG, freeze(cm), freeze(nf), (x.to(dev), y.to(dev)),
+                                                  draws=_to(draws, dev))
+        results[dev] = ({k: float(v) for k, v in m.items()}, C.state_dict(), G.state_dict())
+        if dev == "cuda" and {k: tk.LAUNCHES[k] - b for k, b in before.items()} != {
+                "fused_trigger_fwd": 2, "fused_trigger_bwd": 1, "low_freq": 0}:
+            raise SystemExit("the 96 px step did not launch the tiled K1 twice and K2 once")
+    (m_gpu, c_gpu, g_gpu), (m_cpu, c_cpu, g_cpu) = results["cuda"], results["cpu"]
+    _agree("alternated step at 96 px", m_gpu, m_cpu, ("loss_ce", "loss_l2", "clean_model_loss"),
+           ((c_gpu, c_cpu), (g_gpu, g_cpu)))
+
+
 def variant_step_agreement() -> None:
     """Phase 6, the variants: one full-width input-aware step and one
     multilabel step (bs 32) on the card (K1/K2) and on the CPU (plain
@@ -486,22 +677,22 @@ def variant_step_agreement() -> None:
 ROUTES = {"pallas_trigger": (True, False), "lowfreq_kernel": (False, True), "aten": (False, False)}
 
 
-def _ms_per_step(run) -> float:
-    """Host-clock ms per call of ``run`` over 10 synchronised calls, after 3
-    warm-up calls (cuDNN picks its algorithms there).  A step's metrics,
-    when ``run`` returns them, must hold a finite loss."""
+def _ms_per_step(run, warm: int = 3, iters: int = 10) -> float:
+    """Host-clock ms per call of ``run`` over ``iters`` synchronised calls,
+    after ``warm`` warm-up calls (cuDNN picks its algorithms there).  A
+    step's metrics, when ``run`` returns them, must hold a finite loss."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(iters):
         m = run()
     torch.cuda.synchronize()
     if isinstance(m, dict) and not bool(torch.isfinite(m["loss_ce"])):
         raise SystemExit("non-finite loss in the steady-state steps")
-    return (time.perf_counter() - t0) * 1e3 / 10
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def step_times() -> dict:
@@ -531,9 +722,9 @@ def step_times() -> dict:
     sched = multistep_lr(0.01, (100,), 0.1, 10)
     out = {}
 
-    def record(key, ms):
-        out[key] = {"ms_per_step": ms, "images_per_s": BS * 1e3 / ms}
-        print(f"  step {key}: {ms:.3f} ms ({BS * 1e3 / ms:.0f} img/s)", flush=True)
+    def record(key, ms, bs=BS):
+        out[key] = {"ms_per_step": ms, "images_per_s": bs * 1e3 / ms}
+        print(f"  step {key}: {ms:.3f} ms ({bs * 1e3 / ms:.0f} img/s)", flush=True)
 
     for route, (fused, lowfreq) in ROUTES.items():
         for mode in ("full", "loss_only"):
@@ -570,7 +761,61 @@ def step_times() -> dict:
 
     record("victim parts/C forward, backward, SGD", _ms_per_step(c_update))
     variant_step_times(x, y, gen, sched, record)
+    out.update(large_step_times(sched, record))
     return out
+
+
+def large_step_times(sched, record) -> dict:
+    """Phase 7 above 32 px, full metrics: the imagenet10 alternated step
+    (224 px, bs 32) on the K1/K2 route (the tiled kernels) and the ATen
+    route, with the peak device memory of the K1/K2 step; the imagenet10
+    victim step on K1; the celeba alternated step (64 px, bs 128) on K1/K2.
+    224 px steps take ~1 s, so 2 warm-up and 5 timed steps each."""
+    import torch
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.train import TrainState, freeze, make_alternated_train_step, make_victim_train_step
+
+    dev = torch.device("cuda", 0)
+    memory = {}
+    for dataset, routes in (("imagenet10", ("pallas_trigger", "aten")), ("celeba", ("pallas_trigger",))):
+        base = apply_dataset_preset(Config(dataset=dataset))
+        n, h = base.bs if dataset == "imagenet10" else BS, base.input_height
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.rand((n, C, h, h), generator=gen, device=dev) * 2 - 1
+        y = torch.randint(0, base.num_classes, (n,), generator=gen, device=dev)
+        for route in routes:
+            fused, lowfreq = ROUTES[route]
+            cfg = base.replace(pallas_trigger=fused, pallas_lowfreq=lowfreq)
+            torch.manual_seed(4)
+            C_, G = get_classifier(cfg).to(dev), get_generator(cfg).to(dev)
+            cm, nf = freeze(get_classifier(cfg).to(dev)), freeze(get_frequency_detector(cfg).to(dev))
+            stateC, stateG = TrainState(C_, sched), TrainState(G, sched)
+            step = make_alternated_train_step(cfg, C_, G)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            ms = _ms_per_step(lambda: step(stateC, stateG, cm, nf, (x, y), gen), warm=2, iters=5)
+            record(f"{dataset}/{route}", ms, n)
+            if dataset == "imagenet10" and route == "pallas_trigger":
+                memory = {"max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                          "resident_before_bytes": resident}
+                peak = memory["max_memory_allocated_bytes"] / 2**30
+                print(f"  imagenet10 K1/K2 step: max_memory_allocated {peak:.3f} GiB "
+                      f"({resident / 2**30:.3f} GiB resident before the step)", flush=True)
+            del C_, G, cm, nf, stateC, stateG, step
+        if dataset == "imagenet10":
+            cfg = base.replace(pallas_trigger=True)
+            torch.manual_seed(4)
+            C_, G = get_classifier(cfg).to(dev), freeze(get_generator(cfg).to(dev))
+            stateC = TrainState(C_, sched)
+            vstep = make_victim_train_step(cfg, C_, G)
+            poisoned = torch.arange(n, device=dev) % 10 == 0
+            record("imagenet10/victim pallas_trigger", _ms_per_step(lambda: vstep(stateC, (x, y, poisoned), gen),
+                                                                   warm=2, iters=5), n)
+            del C_, G, stateC, vstep
+    return {"imagenet10/memory": memory}
 
 
 def variant_step_times(x, y, gen, sched, record) -> None:
@@ -659,6 +904,96 @@ def run_variant_phases(common, workdir) -> dict:
             raise SystemExit(f"phase {phase}: best metrics are not percentages: {best}")
         if counts[phase] != dict(zip(KERNEL_NAMES, predicted)):
             raise SystemExit(f"phase {phase} launched {counts[phase]}, predicted {dict(zip(KERNEL_NAMES, predicted))}")
+        _phase(f"{phase} ({entry})", t0)
+    return counts
+
+
+# Phases 5l-5q: celeba and imagenet10 through the entry points, each with the
+# launch counts set to 0 just before it and held just after it to the counts
+# of K1, K2 and K3 predicted from the code.  An alternated step launches K1
+# twice (the C-step's trigger and the G-step's) and K2 once, or K3 three
+# times on its route (the C-step's forward, the G-step's forward and
+# backward); a victim step and every eval batch launch K1 once.  celeba: 256
+# images at bs 128 (2 steps), then one eval batch of its 51 test rows, on
+# the committed celeba detector; imagenet10: 64 images at bs 32 (2 steps),
+# then one eval batch of its 12 test rows, through the tiled kernels.
+_CELEBA = ["--dataset", "celeba", "--bs", "128", "--synthetic_size", "256"]
+_IMAGENET = ["--dataset", "imagenet10", "--bs", "32", "--synthetic_size", "64"]
+_K3 = ["--pallas_trigger", "false", "--pallas_lowfreq", "true"]
+LARGE_PHASES = (  # (phase, entry point, saving prefix or None, flags, (K1, K2, K3))
+    ("5l celeba clean", "train_clean_classifier", "smoke_celeba", _CELEBA, (0, 0, 0)),
+    ("5l celeba generator", "train_generator", "smoke_celeba_atk",
+     _CELEBA + ["--load_checkpoint_clean", "smoke_celeba"], (2 * 2 + 1, 2, 0)),
+    ("5m imagenet10 clean", "train_clean_classifier", "smoke_in", _IMAGENET, (0, 0, 0)),
+    ("5n imagenet10 generator", "train_generator", "smoke_in_atk",
+     _IMAGENET + ["--load_checkpoint_clean", "smoke_in"], (2 * 2 + 1, 2, 0)),
+    ("5o imagenet10 generator K3", "train_generator", "smoke_in_k3",
+     _IMAGENET + ["--load_checkpoint_clean", "smoke_in"] + _K3, (0, 0, 2 * 3 + 1)),
+    ("5p imagenet10 victim", "train_victim", "smoke_in_vic",
+     _IMAGENET + ["--load_checkpoint", "smoke_in_atk_clean"], (2 + 1, 0, 0)),
+    ("5q imagenet10 eval", "eval", None,
+     _IMAGENET + ["--load_checkpoint_clean", "smoke_in_vic_clean", "--load_checkpoint", "smoke_in_atk_clean"],
+     (1, 0, 0)),
+)
+
+
+@contextlib.contextmanager
+def _save_gates_open():
+    """Every epoch of the entry points saves its checkpoint while this is
+    open.  The reference's gates save only an accuracy above the best so
+    far, which starts at 0; after 2 steps at 224 px the classifier's
+    BatchNorm statistics are still near their initial values, and its eval
+    accuracy on 12 test rows can be 0 (a first run scored 0 on 32 rows), so
+    nothing would be saved for the next stage to load."""
+    from combat_tpu_torch.cli import _alternated, _victim, train_clean_classifier
+
+    names = ((train_clean_classifier, "best_gate_clean"), (_victim, "best_gate_clean"),
+             (_alternated, "best_gate_attack"))
+    gates = [(m, name, getattr(m, name)) for m, name in names]
+    for m, name, _ in gates:
+        setattr(m, name, lambda *a: True)
+    try:
+        yield
+    finally:
+        for m, name, gate in gates:
+            setattr(m, name, gate)
+
+
+def run_large_phases(workdir) -> dict:
+    """Phases 5l-5q: each entry point with the launch counts set to 0 just
+    before it, held to its predicted counts just after; its checkpoint
+    finite, its metrics percentages; the celeba generator on the committed
+    celeba detector.  The save gates are open (:func:`_save_gates_open`).
+    Returns each phase's counts."""
+    with _save_gates_open():
+        return _run_large_phases(workdir)
+
+
+def _run_large_phases(workdir) -> dict:
+    import importlib
+
+    from combat_tpu_torch.ops import trigger_kernels as tk
+
+    base = ["--device", "cuda", "--synthetic_data", "--n_iters", "1", "--checkpoints", workdir]
+    counts = {}
+    for phase, entry, prefix, flags, predicted in LARGE_PHASES:
+        t0 = time.perf_counter()
+        main_fn = importlib.import_module(f"combat_tpu_torch.cli.{entry}").main
+        tk.reset_launch_counts()
+        result = main_fn(base + flags + (["--saving_prefix", prefix] if prefix else []))
+        counts[phase] = dict(tk.LAUNCHES)
+        values = list(result.values()) if isinstance(result, dict) else list(result or ())  # eval: a tuple
+        if not all(0.0 <= v <= 100.0 for v in values):  # also false for NaN
+            raise SystemExit(f"phase {phase}: metrics are not percentages: {result}")
+        if prefix:
+            dataset = flags[flags.index("--dataset") + 1]
+            name = prefix if entry == "train_clean_classifier" else f"{prefix}_clean"
+            payload = check_checkpoint(f"{workdir}/{name}/{dataset}/{dataset}_{name}.pt")
+            if entry == "train_generator" and dataset == "celeba" and payload["F_detector_loaded"] is not True:
+                raise SystemExit(f"phase {phase} ran without the committed celeba frequency detector")
+        if counts[phase] != dict(zip(KERNEL_NAMES, predicted)):
+            raise SystemExit(f"phase {phase} launched {counts[phase]}, predicted {dict(zip(KERNEL_NAMES, predicted))}")
+        print(f"  {phase}: {values}", flush=True)
         _phase(f"{phase} ({entry})", t0)
     return counts
 
@@ -775,6 +1110,9 @@ def main(argv=None) -> int:
 
         # 5f-5k. the attack variants, each with its own counts
         variant_launches = run_variant_phases(common, workdir)
+
+        # 5l-5q. celeba and imagenet10 (the tiled kernels), each with its own counts
+        large_launches = run_large_phases(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if any(aten_launches.values()):
@@ -794,7 +1132,9 @@ def main(argv=None) -> int:
         if per_phase[ph][used] == 0 or any(per_phase[ph][k] for k in unused):
             raise SystemExit(f"phase {ph} launched {per_phase[ph]}: expected {used} only")
     print(f"  launches in phases 5f-5k (each as predicted): {json.dumps(variant_launches)}", flush=True)
-    launches = {k: n + sum(per_phase[ph][k] for ph in expect) + sum(c[k] for c in variant_launches.values())
+    print(f"  launches in phases 5l-5q (each as predicted): {json.dumps(large_launches)}", flush=True)
+    launches = {k: n + sum(per_phase[ph][k] for ph in expect)
+                + sum(c[k] for c in (*variant_launches.values(), *large_launches.values()))
                 for k, n in launches.items()}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
@@ -804,6 +1144,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     step_agreement()
     variant_step_agreement()
+    large_step_agreement()
     _phase("6 card vs CPU step", t0)
 
     # 7. the steady-state step

@@ -7,8 +7,8 @@
 autograd function whose forward is kernel K1 and backward kernel K2, which
 take the blur's taps and the truncated DCT matrix.  Without it the
 low-pass runs on its own, followed by clamp and a depthwise blur: as kernel
-K3 with ``lowfreq_kernel`` (``--pallas_lowfreq``), else as the ATen chain,
-which takes any image size.
+K3 with ``lowfreq_kernel`` (``--pallas_lowfreq``), else as the ATen chain.
+Every route takes any image size.
 
 :func:`warp_trigger` is the WaNet warp: the (B, 2, s, s) flow field upsampled
 to the image size, blended with the identity grid, clamped, grid-sampled.

@@ -75,6 +75,32 @@ def _preact_resnet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _resnet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    """BasicBlock and Bottleneck ResNets: the JAX block's ``shortcut_conv``
+    and ``shortcut_bn`` are the port's ``shortcut.0`` and ``shortcut.1``; the
+    head reads the flattened map of layer4's last conv (512 or 2048
+    channels)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "conv1", params["conv1"])
+    _bn(sd, "bn1", params["bn1"], stats["bn1"])
+    blocks = sorted(k for k in params if k.startswith("layer"))
+    for name in blocks:
+        stage, i = name[len("layer") :].split("_")
+        prefix = f"layer{stage}.{i}"
+        block, block_stats = params[name], stats[name]
+        for j in (1, 2, 3):
+            if f"conv{j}" in block:
+                _conv(sd, f"{prefix}.conv{j}", block[f"conv{j}"])
+                _bn(sd, f"{prefix}.bn{j}", block[f"bn{j}"], block_stats[f"bn{j}"])
+        if "shortcut_conv" in block:
+            _conv(sd, f"{prefix}.shortcut.0", block["shortcut_conv"])
+            _bn(sd, f"{prefix}.shortcut.1", block["shortcut_bn"], block_stats["shortcut_bn"])
+    last = params[max((k for k in blocks if k.startswith("layer4_")), key=lambda k: int(k.split("_")[1]))]
+    channels = np.shape(last["conv3" if "conv3" in last else "conv2"]["kernel"])[-1]
+    _dense(sd, "linear", params["linear"], channels=channels)
+    return sd
+
+
 def _unet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for part in ("enc", "dec"):
@@ -121,6 +147,7 @@ def _frequency(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
 
 _CONVERTERS = {
     "preactresnet18": _preact_resnet,
+    "resnet": _resnet,
     "unet": _unet,
     "unet_bk": _unet,
     "grid": _grid,

@@ -45,11 +45,40 @@ def setup_device(cfg: Config) -> torch.device:
     return device
 
 
+# Above this size a split lives on the device as uint8, as in the JAX
+# package (combat_tpu/cli/common.py): a quarter of the float32 footprint
+# (imagenet10's 50,000 synthetic 224 px images are 30.1 GB as float32,
+# 7.5 GB as uint8).  cifar10-scale splits (614 MB) stay float32.  The epoch
+# runners dequantize each gathered batch (train/loop.py::gather_batch).
+_U8_RESIDENCY_BYTES = 1 << 30
+# Row blocks of the host-side quantization, which bound its float
+# temporaries to about this many bytes.
+_QUANT_BLOCK_BYTES = 256 << 20
+
+
+def quantize_rows(images: np.ndarray) -> np.ndarray:
+    """[-1, 1] float images -> uint8 ``round((x + 1) * 127.5)``, clipped to
+    0..255, in row blocks of about ``_QUANT_BLOCK_BYTES``."""
+    u8 = np.empty(images.shape, np.uint8)
+    rows = max(1, _QUANT_BLOCK_BYTES // max(1, images[0].nbytes))
+    for i in range(0, images.shape[0], rows):
+        u8[i : i + rows] = np.clip(np.round((images[i : i + rows] + 1.0) * 127.5), 0, 255)
+    return u8
+
+
 def device_dataset(cfg: Config, device: torch.device, train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Load a split and move it to the device once: NCHW float32 images and
-    int64 labels."""
+    """Load a split and move it to the device once: NCHW images and int64
+    labels.  The images are float32, or uint8 (:func:`quantize_rows`) when
+    the float32 split is larger than ``_U8_RESIDENCY_BYTES``."""
     ds = get_dataset(cfg, train)
-    images = torch.from_numpy(np.ascontiguousarray(ds.images.transpose(0, 3, 1, 2))).to(device)
+    images = ds.images
+    if images.nbytes > _U8_RESIDENCY_BYTES:
+        print(
+            f"[{BANNER}] {'train' if train else 'test'} split ({images.nbytes / 2**30:.2f} GB float32) "
+            "stored on the device as uint8 (lossless for uint8-sourced corpora; <=1/255 quantization otherwise)"
+        )
+        images = quantize_rows(images)
+    images = torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2))).to(device)
     labels = torch.from_numpy(ds.labels.astype(np.int64)).to(device)
     return images, labels
 

@@ -10,8 +10,8 @@ parses here unchanged.  What differs:
     fused trigger kernels (K1/K2, ``ops/trigger_kernels.py``).  With
     ``--pallas_trigger false`` the low-pass runs on its own, then clamp and
     blur: as kernel K3 with ``--pallas_lowfreq true``, else (the default, as
-    in the JAX package) as the ATen chain.  The kernels take H <= 64 and
-    raise above it; the ATen route takes any H.
+    in the JAX package) as the ATen chain.  Every route takes any H: the
+    kernels hold a plane per block up to 64 px and run tiled above.
   * boolean flags take an optional value (``--flag``, ``--flag true``,
     ``--flag false``), so a default of true can be turned off.
   * ``scan_chunk`` and ``remat`` are accepted and are no-ops: epochs are

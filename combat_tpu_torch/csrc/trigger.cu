@@ -71,12 +71,20 @@
 // that 2-3 blocks an SM add is likely the shared-memory loads of the 2x2
 // tiles (2.5 load wavefronts a warp per 4 FMAs a lane), not yet measured.
 //
+// Planes above 64 px (imagenet10's 224) take the tiled kernels of
+// trigger_tiled.cuh: the same three functions as chains of batched,
+// register-tiled products and band passes, each logical kernel one entry
+// point (combat_*_tiled) and one wrapper call.
+//
 // Plain C interface, loaded with ctypes; every entry point returns
 // cudaGetLastError() so a refused launch is reported to the caller.
 
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
+
+#include "trigger_tiled.cuh"
 
 namespace {
 
@@ -505,6 +513,40 @@ int launch_trigger(const void* a, const void* b, const void* Dc, const void* tap
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Launchers of the tiled kernels (H > 64)
+// ---------------------------------------------------------------------------
+
+// C_b = alpha * (A_b B_b + shift) (+ addend_b) for `planes` planes; a plane
+// stride of 0 shares that operand (P) across the batch.
+cudaError_t product(const float* A, long long a_stride, const float* B, long long b_stride, float* C,
+                    const float* addend, int planes, int H, float alpha, float shift, cudaStream_t stream) {
+  const int tiles = (H + tiled::kTile - 1) / tiled::kTile;
+  const size_t n = static_cast<size_t>(H) * H;
+  for (int p0 = 0; p0 < planes; p0 += tiled::kMaxPlanesPerLaunch) {
+    const dim3 grid(tiles * tiles, std::min(planes - p0, tiled::kMaxPlanesPerLaunch));
+    tiled::product_kernel<<<grid, tiled::kThreads, 0, stream>>>(
+        A + p0 * a_stride, a_stride, B + p0 * b_stride, b_stride, C + p0 * n,
+        addend != nullptr ? addend + p0 * n : nullptr, H, tiles, alpha, shift);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <bool Rows, bool Adjoint>
+cudaError_t band(const float* src, float* dst, const float* taps, const float* mask, int planes, int H, int k,
+                 bool clip, cudaStream_t stream) {
+  const size_t total = static_cast<size_t>(planes) * H * H;
+  const unsigned blocks = static_cast<unsigned>((total + tiled::kThreads - 1) / tiled::kThreads);
+  tiled::band_kernel<Rows, Adjoint><<<blocks, tiled::kThreads, 0, stream>>>(src, dst, taps, mask, H, k, total, clip);
+  return cudaGetLastError();
+}
+
+bool tiled_args_ok(int planes, int H, int c, int k) {
+  return planes > 0 && H >= 1 && c >= 0 && c <= H && k >= 1 && k / 2 < H;
+}
+
 }  // namespace
 
 extern "C" {
@@ -528,6 +570,54 @@ int combat_low_freq(const void* x, const void* P, void* out, int planes, int H, 
   kernel<<<planes, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(P), static_cast<float*>(out), H);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1 above 64 px: Z = N P; u = x + noise_rate * (P Z + shift); R = clip(u)
+// B^T; out = B R.  `ws` holds Z, then R (planes x H x H floats).
+int combat_fused_trigger_fwd_tiled(const void* x, const void* nz, const void* P, const void* taps, void* out,
+                                   void* u, void* ws, int planes, int H, int c, int k, float noise_rate,
+                                   void* stream) {
+  if (!tiled_args_ok(planes, H, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const long long n = static_cast<long long>(H) * H;
+  const float *fx = static_cast<const float*>(x), *fn = static_cast<const float*>(nz),
+              *fP = static_cast<const float*>(P), *ft = static_cast<const float*>(taps);
+  float *fo = static_cast<float*>(out), *fu = static_cast<float*>(u), *fw = static_cast<float*>(ws);
+  cudaError_t err = product(fn, n, fP, 0, fw, nullptr, planes, H, 1.f, 0.f, st);
+  if (err == cudaSuccess) err = product(fP, 0, fw, n, fu, fx, planes, H, noise_rate, c > 0 ? 0.f : -1.f, st);
+  if (err == cudaSuccess) err = band<false, false>(fu, fw, ft, nullptr, planes, H, k, true, st);
+  if (err == cudaSuccess) err = band<true, false>(fw, fo, ft, nullptr, planes, H, k, false, st);
+  return static_cast<int>(err);
+}
+
+// K2 above 64 px: R = g B; g_u = (B^T R) * 1{-1 <= u <= 1}, written as g_x;
+// Z = g_u P; g_n = noise_rate * P Z.  `ws` holds R, then Z.
+int combat_fused_trigger_bwd_tiled(const void* g, const void* u, const void* P, const void* taps, void* gx,
+                                   void* gn, void* ws, int planes, int H, int c, int k, float noise_rate,
+                                   void* stream) {
+  if (!tiled_args_ok(planes, H, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const long long n = static_cast<long long>(H) * H;
+  const float *fg = static_cast<const float*>(g), *fu = static_cast<const float*>(u),
+              *fP = static_cast<const float*>(P), *ft = static_cast<const float*>(taps);
+  float *fgx = static_cast<float*>(gx), *fgn = static_cast<float*>(gn), *fw = static_cast<float*>(ws);
+  cudaError_t err = band<false, true>(fg, fw, ft, nullptr, planes, H, k, false, st);
+  if (err == cudaSuccess) err = band<true, true>(fw, fgx, ft, fu, planes, H, k, false, st);
+  if (err == cudaSuccess) err = product(fgx, n, fP, 0, fw, nullptr, planes, H, 1.f, 0.f, st);
+  if (err == cudaSuccess) err = product(fP, 0, fw, n, fgn, nullptr, planes, H, noise_rate, 0.f, st);
+  return static_cast<int>(err);
+}
+
+// K3 above 64 px: Z = X P; out = P Z.  `ws` holds Z.
+int combat_low_freq_tiled(const void* x, const void* P, void* out, void* ws, int planes, int H, void* stream) {
+  if (!tiled_args_ok(planes, H, 1, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const long long n = static_cast<long long>(H) * H;
+  const float* fP = static_cast<const float*>(P);
+  float* fw = static_cast<float*>(ws);
+  cudaError_t err = product(static_cast<const float*>(x), n, fP, 0, fw, nullptr, planes, H, 1.f, 0.f, st);
+  if (err == cudaSuccess) err = product(fP, 0, fw, n, static_cast<float*>(out), nullptr, planes, H, 1.f, 0.f, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -11,10 +11,13 @@ from .generators import (
 )
 from .layers import BatchNorm2d, guided_relu, instance_norm
 from .preact_resnet import PreActBlock, PreActResNet, preact_resnet18
+from .resnet import BasicBlock, Bottleneck, ResNet, resnet18, resnet34, resnet50, resnet101, resnet152
 from .registry import get_classifier, get_frequency_detector, get_generator
 
 __all__ = [
+    "BasicBlock",
     "BatchNorm2d",
+    "Bottleneck",
     "CUnetGenerator",
     "FixedTriggerGenerator",
     "FrequencyModel",
@@ -22,6 +25,7 @@ __all__ = [
     "MixedGenerator",
     "PreActBlock",
     "PreActResNet",
+    "ResNet",
     "UnetDecoder",
     "UnetEncoder",
     "UnetGenerator",
@@ -32,4 +36,9 @@ __all__ = [
     "guided_relu",
     "instance_norm",
     "preact_resnet18",
+    "resnet101",
+    "resnet152",
+    "resnet18",
+    "resnet34",
+    "resnet50",
 ]

@@ -1,9 +1,10 @@
 """Model factories of this slice of the port (``combat_tpu/models/registry.py``).
 
 Ported so far: the PreActResNet18 classifier (the default of cifar10 and
-gtsrb, and any dataset's with ``--model preactresnet18``), every trigger
-generator and the ``original`` frequency detector.  Any other name raises
-``NotImplementedError`` naming the later slice that ports it.
+gtsrb), ResNet18 (the default of celeba and imagenet10), ``--model``
+``preactresnet18``, ``resnet18`` and ``resnet34`` for any dataset, every
+trigger generator and the ``original`` frequency detector.  Any other name
+raises ``NotImplementedError`` naming the later slice that ports it.
 """
 
 from __future__ import annotations
@@ -21,18 +22,25 @@ from .generators import (
     UnetGeneratorBK,
 )
 from .preact_resnet import preact_resnet18
+from .resnet import resnet18, resnet34
 
 _LATER = "is not ported yet: the other classifiers, generators and detectors are a later slice of the port"
+
+# --model names ported so far (the JAX registry's CLASSIFIERS), and each
+# dataset's default (combat_tpu/models/registry.py::get_classifier)
+_CLASSIFIERS = {"preactresnet18": preact_resnet18, "resnet18": resnet18, "resnet34": resnet34}
+_DEFAULTS = {"cifar10": "preactresnet18", "gtsrb": "preactresnet18", "celeba": "resnet18", "imagenet10": "resnet18"}
 
 
 def get_classifier(cfg: Config) -> nn.Module:
     """Default classifier per dataset; a named model is built for any
     dataset, as in the JAX registry."""
-    if cfg.model == "default" and cfg.dataset not in ("cifar10", "gtsrb"):
+    if cfg.model == "default" and cfg.dataset not in _DEFAULTS:
         raise NotImplementedError(f"the default classifier of dataset {cfg.dataset!r} {_LATER}")
-    if cfg.model not in ("default", "preactresnet18"):
+    name = _DEFAULTS[cfg.dataset] if cfg.model == "default" else cfg.model
+    if name not in _CLASSIFIERS:
         raise NotImplementedError(f"classifier {cfg.model!r} {_LATER}")
-    return preact_resnet18(cfg.num_classes, cfg.input_height, cfg.input_channel)
+    return _CLASSIFIERS[name](cfg.num_classes, cfg.input_height, cfg.input_channel)
 
 
 def get_generator(cfg: Config, kind: str = "unet") -> nn.Module:

@@ -8,6 +8,12 @@ resample from the zero-padded image, with the interpolation taps masked to
 each image's crop window so the rotation's zero fill is relative to the crop,
 exactly as in the JAX package.
 
+The resample contracts a rank-5 intermediate of n*c*h*w*(h+2*pad) values:
+66 MB at 32 px and bs 128, 4.5 GB at 224 px and bs 32.  Above
+``_CHUNK_BYTES`` it runs over blocks of output rows, the smallest number of
+blocks that divides H and keeps each under the budget (28 blocks of 8 rows
+at 224 px, bs 32), with the same values; the JAX package chunks alike.
+
 Every draw can be passed in as :class:`AugDraws`; absent, they come from the
 given ``torch.Generator`` (:func:`draw_augment`).
 """
@@ -19,6 +25,10 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+# Device-memory budget of the resample's rank-5 intermediate; above it the
+# output rows are resampled in blocks (combat_tpu/ops/augment.py:36).
+_CHUNK_BYTES = 256 * 1024 * 1024
 
 
 class AugDraws(NamedTuple):
@@ -93,12 +103,24 @@ def post_tensor_transform(
     fyp = fy + tops[:, None, None].to(dtype)
     src_y = torch.arange(h + 2 * pad, dtype=dtype, device=x.device)
     src_x = torch.arange(w + 2 * pad, dtype=dtype, device=x.device)
-    uy = (1.0 - (fyp[..., None] - src_y).abs()).clamp_min(0.0)  # (n, h, w, Sy)
-    ux = (1.0 - (fxp[..., None] - src_x).abs()).clamp_min(0.0)  # (n, h, w, Sx)
-    # the rotation's zero fill is relative to the crop window
-    my = (src_y[None, :] >= tops[:, None]) & (src_y[None, :] <= tops[:, None] + (h - 1))
-    mx = (src_x[None, :] >= lefts[:, None]) & (src_x[None, :] <= lefts[:, None] + (w - 1))
-    uy = uy * my[:, None, None, :].to(dtype)
-    ux = ux * mx[:, None, None, :].to(dtype)
-    t = torch.einsum("bijx,bcyx->bcijy", ux, padded)
-    return torch.einsum("bijy,bcijy->bcij", uy, t)
+
+    def taps(f, lo, size, src):
+        """Bilinear weights of the (n, rows, w) coordinates ``f`` on the
+        source axis ``src``, masked to each image's crop window [lo, lo +
+        size - 1]: the rotation's zero fill is relative to the crop."""
+        u = (1.0 - (f[..., None] - src).abs()).clamp_min(0.0)  # (n, rows, w, S)
+        m = (src[None, :] >= lo[:, None]) & (src[None, :] <= lo[:, None] + (size - 1))
+        return u * m[:, None, None, :].to(dtype)
+
+    def resample(rows: slice) -> torch.Tensor:
+        ux = taps(fxp[:, rows], lefts, w, src_x)
+        uy = taps(fyp[:, rows], tops, h, src_y)
+        t = torch.einsum("bijx,bcyx->bcijy", ux, padded)
+        return torch.einsum("bijy,bcijy->bcij", uy, t)
+
+    inter_bytes = n * x.shape[1] * h * w * (h + 2 * pad) * x.element_size()
+    if inter_bytes <= _CHUNK_BYTES:
+        return resample(slice(None))
+    want = min(h, -(-inter_bytes // _CHUNK_BYTES))  # the fewest blocks, at most one row each
+    blk = h // next(b for b in range(want, h + 1) if h % b == 0)
+    return torch.cat([resample(slice(i, i + blk)) for i in range(0, h, blk)], dim=2)

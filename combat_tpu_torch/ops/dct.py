@@ -45,8 +45,8 @@ def low_freq(x: torch.Tensor, image_size: int, ratio: float, use_kernel: bool = 
     [0, 255]-scaled image and maps back to [-1, 1].  Differentiable.
 
     ``use_kernel`` launches kernel K3 (forward and backward) for a CUDA
-    tensor, and raises where K3 does not reach (H > 64); without it the
-    low-pass is ``dct_2d``, the corner mask and ``idct_2d``, for any H.  A
+    tensor, at any H (the tiled K3 above 64 px); without it the low-pass is
+    ``dct_2d``, the corner mask and ``idct_2d``.  A
     cutoff of 0 keeps nothing: -1 everywhere with a zero gradient, on either
     route and without a kernel, as the JAX package gives."""
     h, w = x.shape[-2], x.shape[-1]

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for the trigger chain, and their plain versions.
 
 Three Pallas TPU kernels of ``combat_tpu/ops/pallas_kernels.py`` become
-kernels in ``combat_tpu_torch/csrc/trigger.cu`` (sm_90a, plain ``extern "C"``
-interface, loaded with ctypes):
+kernels in ``combat_tpu_torch/csrc/trigger.cu`` and ``trigger_tiled.cuh``
+(sm_90a, plain ``extern "C"`` interface, loaded with ctypes):
 
   K1 ``fused_trigger_fwd`` replaces ``pallas_kernels.py:_fused_trigger_impl``
      (kernel ``_fused_trigger_fwd_kernel``).  Per (image, channel) plane:
@@ -44,6 +44,16 @@ affine scaling folds away (P passes the all-ones plane once c >= 1).  On an
 H100 one block's chain takes 3.2 us (K1/K2: 5.5 us) and K3 runs at ~15% of
 its bound at the slice's shapes.
 
+Planes above 64 px (imagenet10's 224) take the tiled kernels of
+``csrc/trigger_tiled.cuh``: one plane and its operator no longer fit one
+block's shared memory, so each logical kernel is a chain of launches over
+the batch, with one workspace tensor the wrapper allocates: batched
+register-tiled products with the projector P (K3: X P, then P Z; K1 and K2
+the same two with their epilogues) and band passes of the blur, one output
+element a thread.  There they are bound by operations (2 H^3 FMA a plane
+for the two products), not bytes.  Each wrapper call still counts one
+launch in :data:`LAUNCHES`.
+
 Beside each kernel: its plain PyTorch version, which keeps the JAX kernels'
 dense (D, M, B) form, is the CPU path and what ``chip_smoke.py`` compares the
 kernel with; a launch count in :data:`LAUNCHES`; and the
@@ -73,12 +83,14 @@ import torch
 
 from .blur import blur_matrix
 
-MAX_PLANE = 64  # the shared-memory design holds one H x H plane per block
+PLANE_PER_BLOCK_MAX = 64  # up to here one block holds a plane; above, the tiled kernels
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "trigger.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCE = _CSRC / "trigger.cu"
+_HEADERS = (_CSRC / "trigger_tiled.cuh",)  # included by trigger.cu
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "combat_tpu_torch"
 
 # Launches per kernel; each wrapper adds one where it launches, nowhere else.
@@ -114,7 +126,8 @@ def build() -> ctypes.CDLL:
     global _lib, BUILD_LOG
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in (_SOURCE, *_HEADERS))
+    digest = hashlib.sha256(text + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"libcombat_trigger_{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -131,7 +144,11 @@ def build() -> ctypes.CDLL:
     lib.combat_fused_trigger_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
     lib.combat_fused_trigger_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
     lib.combat_low_freq.argtypes = [p, p, p, i, i, p]
-    for fn in (lib.combat_fused_trigger_fwd, lib.combat_fused_trigger_bwd, lib.combat_low_freq):
+    lib.combat_fused_trigger_fwd_tiled.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.combat_fused_trigger_bwd_tiled.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.combat_low_freq_tiled.argtypes = [p, p, p, p, i, i, p]
+    for fn in (lib.combat_fused_trigger_fwd, lib.combat_fused_trigger_bwd, lib.combat_low_freq,
+               lib.combat_fused_trigger_fwd_tiled, lib.combat_fused_trigger_bwd_tiled, lib.combat_low_freq_tiled):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -174,12 +191,17 @@ def truncated_dct(h: int, ratio: float, device: str) -> torch.Tensor:
     return d[: int(h * ratio)].contiguous()
 
 
-@functools.lru_cache(maxsize=None)
 def lowpass_projector(h: int, ratio: float, device: str) -> torch.Tensor:
-    """P = D_c^T D_c, the (h, h) operand of K3: the symmetric projector onto
-    the first ``c = int(h*ratio)`` DCT basis vectors, so the low-pass of a
-    plane y is P y P.  Built in float64, stored in float32."""
-    dc = _dct_matrix_np(h)[: int(h * ratio)]
+    """P = D_c^T D_c, the (h, h) operand of K3 (and of K1/K2 above 64 px):
+    the symmetric projector onto the first ``c = int(h*ratio)`` DCT basis
+    vectors, so the low-pass of a plane y is P y P.  Built in float64,
+    stored in float32."""
+    return _projector(h, int(h * ratio), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _projector(h: int, cutoff: int, device: str) -> torch.Tensor:
+    dc = _dct_matrix_np(h)[:cutoff]
     return torch.tensor(dc.T @ dc, dtype=torch.float32, device=device)
 
 
@@ -231,11 +253,6 @@ def _check_cuda(planes: torch.Tensor) -> Tuple[int, int]:
     if planes.dim() != 4 or planes.shape[-1] != planes.shape[-2]:
         raise ValueError(f"trigger kernels take square NCHW batches, got {tuple(planes.shape)}")
     h = planes.shape[-1]
-    if h > MAX_PLANE:
-        raise NotImplementedError(
-            f"H={h} > {MAX_PLANE}: the one-plane-per-block kernels hold H <= {MAX_PLANE}; "
-            "the tiled kernels for larger images (imagenet10) are a later slice of the port"
-        )
     if planes.dtype != torch.float32 or not planes.is_contiguous():
         raise ValueError("trigger kernels take contiguous float32 tensors")
     return planes.shape[0] * planes.shape[1], h
@@ -254,16 +271,27 @@ def _check_trigger(a: torch.Tensor, b: torch.Tensor, taps: torch.Tensor, Dc: tor
     return h
 
 
-def _launch_trigger(fn, a, b, taps, Dc, noise_rate: float, name: str):
+def _launch_trigger(lib, a, b, taps, Dc, noise_rate: float, name: str):
+    """K1 (``name`` fused_trigger_fwd) or K2 on a CUDA batch: the
+    one-plane-per-block kernel up to 64 px, else the tiled chain with the
+    projector P and a workspace.  One launch counted either way."""
     n_planes, h = _check_cuda(a)
     for t in (b, taps, Dc):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("trigger kernels take contiguous float32 tensors")
     o0, o1 = torch.empty_like(a), torch.empty_like(a)
-    err = fn(
-        a.data_ptr(), b.data_ptr(), Dc.data_ptr(), taps.data_ptr(), o0.data_ptr(), o1.data_ptr(),
-        n_planes, h, Dc.shape[0], taps.numel(), float(noise_rate), _stream(),
-    )
+    c, k = Dc.shape[0], taps.numel()
+    if h <= PLANE_PER_BLOCK_MAX:
+        err = getattr(lib, f"combat_{name}")(
+            a.data_ptr(), b.data_ptr(), Dc.data_ptr(), taps.data_ptr(), o0.data_ptr(), o1.data_ptr(),
+            n_planes, h, c, k, float(noise_rate), _stream(),
+        )
+    else:
+        P, ws = _projector(h, c, str(a.device)), torch.empty_like(a)
+        err = getattr(lib, f"combat_{name}_tiled")(
+            a.data_ptr(), b.data_ptr(), P.data_ptr(), taps.data_ptr(), o0.data_ptr(), o1.data_ptr(), ws.data_ptr(),
+            n_planes, h, c, k, float(noise_rate), _stream(),
+        )
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return o0, o1
@@ -290,7 +318,7 @@ def fused_trigger_fwd(x, noise, taps, Dc, noise_rate: float):
     h = _check_trigger(x, noise, taps, Dc)
     if _on_cpu(x, noise, taps, Dc):
         return fused_trigger_fwd_plain(x, noise, *_plain_operands(h, taps, Dc), noise_rate)
-    return _launch_trigger(build().combat_fused_trigger_fwd, x, noise, taps, Dc, noise_rate, "fused_trigger_fwd")
+    return _launch_trigger(build(), x, noise, taps, Dc, noise_rate, "fused_trigger_fwd")
 
 
 def fused_trigger_bwd(g, u, taps, Dc, noise_rate: float):
@@ -298,7 +326,7 @@ def fused_trigger_bwd(g, u, taps, Dc, noise_rate: float):
     h = _check_trigger(g, u, taps, Dc)
     if _on_cpu(g, u, taps, Dc):
         return fused_trigger_bwd_plain(g, u, *_plain_operands(h, taps, Dc), noise_rate)
-    return _launch_trigger(build().combat_fused_trigger_bwd, g, u, taps, Dc, noise_rate, "fused_trigger_bwd")
+    return _launch_trigger(build(), g, u, taps, Dc, noise_rate, "fused_trigger_bwd")
 
 
 def low_freq_planes(x, ratio: float):
@@ -314,7 +342,12 @@ def low_freq_planes(x, ratio: float):
     n_planes, h = _check_cuda(x)
     P = lowpass_projector(h, ratio, str(x.device))
     out = torch.empty_like(x)
-    err = build().combat_low_freq(x.data_ptr(), P.data_ptr(), out.data_ptr(), n_planes, h, _stream())
+    if h <= PLANE_PER_BLOCK_MAX:
+        err = build().combat_low_freq(x.data_ptr(), P.data_ptr(), out.data_ptr(), n_planes, h, _stream())
+    else:
+        ws = torch.empty_like(x)
+        err = build().combat_low_freq_tiled(x.data_ptr(), P.data_ptr(), out.data_ptr(), ws.data_ptr(), n_planes, h,
+                                            _stream())
     _raise_on(err, "low_freq")
     LAUNCHES["low_freq"] += 1
     return out

@@ -1,10 +1,12 @@
 """Epoch runners (the port of ``combat_tpu/train/loop.py``).
 
-The split lives on the device as one NCHW tensor, so a minibatch is a
-device-side gather.  Every training epoch covers all N rows, like the
-reference's ``DataLoader(drop_last=False)``: one permutation per epoch, the
-full batches, then the ragged tail (n % bs rows) as one extra step at its
-true shape, so BatchNorm, the loss and the metrics see the genuine small
+The split lives on the device as one NCHW tensor, float32 or, for a split
+above 1 GiB, uint8 (``cli/common.py::device_dataset``), so a minibatch is a
+device-side gather followed by :func:`dequantize` (:func:`gather_batch`).
+Every training epoch covers all N rows, like the reference's
+``DataLoader(drop_last=False)``: one permutation per epoch, the full
+batches, then the ragged tail (n % bs rows) as one extra step at its true
+shape, so BatchNorm, the loss and the metrics see the genuine small
 batch.  Eval pads to whole batches with a validity mask, so eval metrics are
 exact.  Metrics stay on the device, summed, until the epoch's end.
 """
@@ -16,6 +18,20 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 Metrics = Dict[str, torch.Tensor]
+
+
+def dequantize(x: torch.Tensor) -> torch.Tensor:
+    """A uint8 batch back to the [-1, 1] float32 range, ``u8 / 127.5 - 1``
+    as the JAX package computes it (the reference's ToTensor and
+    Normalize(0.5, 0.5) of a uint8 frame); a float batch passes through."""
+    if x.dtype == torch.uint8:
+        return x.float() / 127.5 - 1.0
+    return x
+
+
+def gather_batch(images: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of the device-resident split, dequantized."""
+    return dequantize(images[idx])
 
 
 def epoch_permutation(
@@ -60,7 +76,7 @@ def train_epoch_alternated(
     metrics = None
     for idx in (*full, tail):
         if idx.numel():
-            m = step_fn(stateC, stateG, clean_model, netF, (images[idx], labels[idx]), generator)
+            m = step_fn(stateC, stateG, clean_model, netF, (gather_batch(images, idx), labels[idx]), generator)
             metrics = _accumulate(metrics, m)
     return metrics
 
@@ -89,7 +105,8 @@ def train_epoch_alternated_pair(
     metrics = None
     for idx, idx2 in zip((*full, tail), (*full2, tail2)):
         if idx.numel():
-            m = step_fn(stateC, stateG, clean_model, netF, (images[idx], labels[idx], images[idx2]), generator)
+            batch = (gather_batch(images, idx), labels[idx], gather_batch(images, idx2))
+            m = step_fn(stateC, stateG, clean_model, netF, batch, generator)
             metrics = _accumulate(metrics, m)
     return metrics
 
@@ -111,7 +128,8 @@ def train_epoch_classifier(
     metrics = None
     for idx in (*full, tail):
         if idx.numel():
-            batch = (images[idx], labels[idx]) if poisoned is None else (images[idx], labels[idx], poisoned[idx])
+            x = gather_batch(images, idx)
+            batch = (x, labels[idx]) if poisoned is None else (x, labels[idx], poisoned[idx])
             metrics = _accumulate(metrics, step_fn(stateC, batch, generator))
     return metrics
 
@@ -136,7 +154,8 @@ def eval_epoch(
         pair_perm = torch.randperm(n, generator=step_kw.get("generator"), device=images.device)
     metrics = None
     for ix, vd in zip(idx, valid):
-        batch = (images[ix], labels[ix], images[pair_perm[ix]], vd) if with_pair else (images[ix], labels[ix], vd)
+        x = gather_batch(images, ix)
+        batch = (x, labels[ix], gather_batch(images, pair_perm[ix]), vd) if with_pair else (x, labels[ix], vd)
         metrics = _accumulate(metrics, step_fn(*step_args, batch, **step_kw))
     return metrics
 

@@ -9,7 +9,9 @@ Elsewhere its tests skip.  Tolerance 1e-4 absolute: float32 FMA in another
 summation order than cuBLAS, on values of order 1 to 10.  K1/K2 are held at
 32 and 64 px, 3 and 5 taps, a small and a large sigma (B^T != B), and a
 full and a ragged plane count; K3 at 28-64 px and the cutoffs c = 1,
-0.65 H and H.
+0.65 H and H.  Above 64 px the tiled kernels are held the same way at 65,
+100 and 224 px (imagenet10: bs 32, 96 planes), and one alternated step at
+96 px runs them inside the step, card against CPU.
 """
 
 import pytest
@@ -150,14 +152,111 @@ def test_aten_route_runs_any_size_without_kernels(dev):
 
 
 @pytest.mark.cuda
-def test_wrappers_raise_for_planes_above_64(dev):
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("h,planes,ratio", [(65, 383, RATIO), (100, 383, RATIO), (224, 96, RATIO), (100, 7, 0.01),
+                                            (72, 7, 1.0)], ids=["H65", "H100", "H224", "H100-c0", "H72-c=H"])
+def test_tiled_fused_trigger_kernels_match_plain(dev, h, planes, ratio, k):
+    """K1/K2 above 64 px (the tiled chain: products with P, band passes)
+    against the plain versions: H not a multiple of the 64-wide tile (65,
+    100), imagenet10's 224 at bs 32, the cutoff edges c = 0 and c = H; one
+    launch counted a call."""
+    x, noise, g = _planes(dev, planes, h)
+    taps = gaussian_kernel_1d(k, 0.9, device=dev)
+    B = blur_matrix(taps, h)
+    D, M = tk.trigger_operands(h, ratio, str(dev))
+    Dc = tk.truncated_dct(h, ratio, str(dev))
+    before = dict(tk.LAUNCHES)
+    out, u = tk.fused_trigger_fwd(x, noise, taps, Dc, NOISE_RATE)
+    gx, gn = tk.fused_trigger_bwd(g, u, taps, Dc, NOISE_RATE)
+    torch.cuda.synchronize()
+    assert {n: tk.LAUNCHES[n] - before[n] for n in before} == {"fused_trigger_fwd": 1, "fused_trigger_bwd": 1,
+                                                               "low_freq": 0}
+    ref_out, ref_u = tk.fused_trigger_fwd_plain(x, noise, B, D, M, NOISE_RATE)
+    ref_gx, ref_gn = tk.fused_trigger_bwd_plain(g, u, B, D, M, NOISE_RATE)
+    for got, ref in ((out, ref_out), (u, ref_u), (gx, ref_gx), (gn, ref_gn)):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,planes,ratio", [(65, 383, RATIO), (100, 383, 1.5 / 100), (224, 96, RATIO),
+                                            (224, 96, 1.0)], ids=["H65", "H100-c1", "H224", "H224-c=H"])
+def test_tiled_low_freq_kernel_and_autograd_match_plain(dev, h, planes, ratio):
+    """K3 above 64 px, forward and through autograd (the tiled K3 on the
+    cotangent), against the plain dense chain; two launches."""
     from combat_tpu_torch.ops.dct import low_freq
 
-    x = torch.zeros(1, 3, 128, 128, device=dev)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tk.low_freq_planes(x, RATIO)
-    with pytest.raises(NotImplementedError, match="later slice"):  # the kernel route never slips to ATen
-        low_freq(x, 128, RATIO, use_kernel=True)
+    x, _, g = _planes(dev, planes, h)
+    D, M = tk.trigger_operands(h, ratio, str(dev))
+    xt, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    before = tk.LAUNCHES["low_freq"]
+    out = low_freq(xt, h, ratio, use_kernel=True)
+    (gx,) = torch.autograd.grad(out, xt, grad_outputs=g)
+    assert tk.LAUNCHES["low_freq"] == before + 2
+    ref = tk.low_freq_plain(xp, D, M)
+    (ref_gx,) = torch.autograd.grad(ref, xp, grad_outputs=g)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(gx, ref_gx, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_fused_trigger_autograd_at_224_matches_the_plain_chain(dev):
+    """FusedTrigger at imagenet10's 224 px (tiled K1 forward, K2 backward)
+    against autograd through the plain dense chain."""
+    x, noise, g = (t[:4].contiguous() for t in _inputs(dev, n=8, h=224))
+    taps = gaussian_kernel_1d(3, 0.9, device=dev)
+    D, M = tk.trigger_operands(224, RATIO, str(dev))
+    grads = []
+    for fused in (True, False):
+        xt, nt = x.clone().requires_grad_(), noise.clone().requires_grad_()
+        if fused:
+            out = tk.FusedTrigger.apply(xt, nt, taps, tk.truncated_dct(224, RATIO, str(dev)), NOISE_RATE)
+        else:
+            out, _ = tk.fused_trigger_fwd_plain(xt, nt, blur_matrix(taps, 224), D, M, NOISE_RATE)
+        grads.append((out, *torch.autograd.grad(out, (xt, nt), grad_outputs=g)))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_alternated_step_at_96px_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """One alternated step at 96 px (ResNet18, UNet nf 64, bs 4) on the card,
+    where the tiled K1/K2 run inside the step, against the same step on the
+    CPU (the plain versions), from the same weights and draws: losses and
+    C's and G's updated parameters within 1e-4; K1 twice, K2 once."""
+    import copy
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.train import TrainState, draw_alternated, freeze, make_alternated_train_step, multistep_lr
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = apply_dataset_preset(Config(dataset="celeba")).replace(input_height=96, input_width=96, bs=4)
+    torch.manual_seed(0)
+    weights = [get_classifier(cfg), get_generator(cfg), get_classifier(cfg), get_frequency_detector(cfg)]
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((4, 3, 96, 96), generator=gen) * 2 - 1
+    y = torch.tensor([0, 0, 1, 2])
+    draws = draw_alternated(cfg, 4, gen, "cpu")
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        C, G, cm, nf = (copy.deepcopy(m).to(d) for m in weights)
+        sched = multistep_lr(0.01, (100,), 0.1, 10)
+        stateC, stateG = TrainState(C, sched), TrainState(G, sched)
+        before = dict(tk.LAUNCHES)
+        moved = type(draws)(*(_to(v, d) for v in draws))
+        m = make_alternated_train_step(cfg, C, G)(stateC, stateG, freeze(cm), freeze(nf), (x.to(d), y.to(d)),
+                                                  draws=moved)
+        out[d.type] = (m, C.state_dict(), G.state_dict(), {k: tk.LAUNCHES[k] - n for k, n in before.items()})
+    assert out["cuda"][3] == {"fused_trigger_fwd": 2, "fused_trigger_bwd": 1, "low_freq": 0}
+    assert not any(out["cpu"][3].values())
+    for k in ("loss_ce", "loss_l2", "clean_model_loss"):
+        torch.testing.assert_close(out["cuda"][0][k].cpu(), out["cpu"][0][k], atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    for i in (1, 2):
+        for k, v in out["cpu"][i].items():
+            if v.is_floating_point():
+                torch.testing.assert_close(out["cuda"][i][k].cpu(), v, atol=1e-4, rtol=0,
+                                           msg=lambda m, k=k: f"{k}: {m}")
 
 
 @pytest.mark.cuda

@@ -130,7 +130,9 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
 def test_wrappers_refuse_mixed_devices_and_large_planes():
     """K3 takes no operand tensor since it builds P itself, so the mixed
     devices are K1's; K3 refuses a device that is neither CUDA nor CPU, and
-    a cutoff of 0 (low_freq returns -1 there without a kernel)."""
+    a cutoff of 0 (low_freq returns -1 there without a kernel).  A plane
+    above 64 px passes the launch check (the tiled kernels take it); a
+    float64 or strided one does not."""
     meta = torch.zeros(1, 3, H, H, device="meta")
     with pytest.raises(ValueError, match="one device"):
         tk.fused_trigger_fwd(meta, meta, gaussian_kernel_1d(3, 0.5), tk.truncated_dct(H, RATIO, "cpu"), NOISE_RATE)
@@ -139,8 +141,7 @@ def test_wrappers_refuse_mixed_devices_and_large_planes():
     with pytest.raises(ValueError, match="keeps no DCT coefficient"):
         tk.low_freq_planes(torch.zeros(1, 3, H, H), 0.01)
     big = torch.zeros(1, 3, 128, 128)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tk._check_cuda(big)
+    assert tk._check_cuda(big) == (3, 128)  # the tiled kernels take planes above 64 px
     with pytest.raises(ValueError, match="contiguous float32"):
         tk._check_cuda(big.double()[..., :64, :64])
 

@@ -15,7 +15,7 @@ import torch
 
 from _torch_helpers import assert_state_close, nchw, to_numpy_tree
 from combat_tpu_torch.checkpoint import from_jax_params
-from combat_tpu_torch.models import FrequencyModel, PreActResNet, UnetGenerator, guided_relu
+from combat_tpu_torch.models import FrequencyModel, PreActResNet, ResNet, UnetGenerator, guided_relu
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -31,9 +31,11 @@ def _pair(kind, seed=0):
     from combat_tpu.models.frequency import FrequencyModel as JaxFrequency
     from combat_tpu.models.generators import UnetGenerator as JaxUnet
     from combat_tpu.models.preact_resnet import PreActResNet as JaxPreAct
+    from combat_tpu.models.resnet import ResNet as JaxResNet
 
     jax_model, port = {
         "preactresnet18": (JaxPreAct([1, 1, 1, 1], 10), PreActResNet((1, 1, 1, 1), 10)),
+        "resnet": (JaxResNet([1, 1, 1, 1], 10), ResNet((1, 1, 1, 1), 10)),
         "unet": (JaxUnet(nf=8), UnetGenerator(nf=8)),
         "frequency": (JaxFrequency(num_classes=2), FrequencyModel(num_classes=2)),
     }[kind]
@@ -83,7 +85,7 @@ def test_train_mode_bn_update_matches_jax(kind):
 
 
 def test_conversion_covers_every_port_tensor():
-    for kind in ("preactresnet18", "unet", "frequency"):
+    for kind in ("preactresnet18", "resnet", "unet", "frequency"):
         _, variables, port = _pair(kind)
         assert set(from_jax_params(variables, kind)) == set(port.state_dict())
     with pytest.raises(ValueError):
@@ -133,7 +135,7 @@ def test_registry_raises_for_later_slices():
     assert isinstance(get_frequency_detector(cfg), FrequencyModel)
     for make in (
         lambda: get_classifier(cfg.replace(model="vgg16")),
-        lambda: get_classifier(apply_dataset_preset(Config(dataset="celeba"))),
+        lambda: get_classifier(cfg.replace(model="mobilenetv2")),
         lambda: get_classifier(apply_dataset_preset(Config(dataset="mnist"))),
         lambda: get_frequency_detector(cfg.replace(F_model="original_dropout")),
     ):

@@ -16,10 +16,13 @@ Phases, each printing one line with its seconds:
      dense ``torch.matmul``s (``library_ms``); also at 64 px, and their
      device durations traced with ``torch.profiler``; then the tiled
      kernels above 64 px held to their plain versions at 224 px (96
-     planes, imagenet10's bs 32) and at H = 100, and timed at 224 px beside
-     their plain versions, a ``torch.matmul`` chain with the projector P
-     and their bound, with their traced device time summed over each
-     chain's launches (the ``h224`` entry of each kernel's row);
+     planes, imagenet10's bs 32; K3 within 2e-5) and at H = 100, and timed
+     at 224 px beside their plain versions, a ``torch.matmul`` chain with
+     the projector P and two bounds (with the products on the tensor cores
+     in three TF32 passes, as the kernels run them, and in float32 FMA),
+     with their traced device time summed over each chain's launches and
+     split into products, K1's one-pass blur and K2's band passes (the
+     ``h224`` entry of each kernel's row);
   3. ``train_clean_classifier`` at full width (PreActResNet18, bs 128,
      1024 synthetic images: 8 steps, then eval);
   4. ``train_generator`` on that checkpoint, fused trigger (K1/K2): 8
@@ -83,7 +86,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 KERNEL_TOL = 1e-4  # float32 FMA in another order than cuBLAS; values O(1)
+TILED_K3_TOL = 2e-5  # tiled K3 at 224 px: three TF32 passes keep float32 accuracy, one pass errs ~1e-3
 BS, C, H = 128, 3, 32
 RATIO, NOISE_RATE = 0.65, 0.08
 H_LARGE, PLANES_LARGE = 224, 32 * 3  # imagenet10: bs 32, 3 x 224 x 224
@@ -119,8 +124,11 @@ def _event_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: int, flops: int):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def _bound_ms(nbytes: int, flops: int, tf32_flops: int = 0):
+    """The least time for the work: the larger of its bytes over the HBM
+    rate and its operations, float32 FMA over the float32 rate plus
+    tensor-core TF32 operations over the TF32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S + tf32_flops / TF32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -417,6 +425,8 @@ def check_tiled() -> dict:
         (ref_gx,) = torch.autograd.grad(ref, xp, grad_outputs=g)
         err = max(_err(out, ref), _err(gx, ref_gx))
         print(f"  tiled K3 H={h} planes={planes}: fwd and autograd {err:.3e}", flush=True)
+        if h == H_LARGE and not err <= TILED_K3_TOL:
+            raise SystemExit(f"tiled K3 at {h} px is {err:.3e} from its plain version (tolerance {TILED_K3_TOL:.0e})")
         worst["low_freq"] = max(worst["low_freq"], err)
     return worst
 
@@ -426,7 +436,10 @@ def time_tiled() -> dict:
     version and one PyTorch call chain of the same function (the projector's
     two products as batched ``torch.matmul``, the blur as dense ``B``
     products, TF32 off), with its device time from a profiler trace summed
-    over the chain's launches and its bound.  Returns a dict per kernel."""
+    over the chain's launches and split by part, and two bounds: with the
+    products on the tensor cores in three TF32 passes (``bound_ms``, what
+    the kernels run) and in float32 FMA (``bound_f32_fma_ms``).  Returns a
+    dict per kernel."""
     import torch
 
     from combat_tpu_torch.ops import trigger_kernels as tk
@@ -469,31 +482,38 @@ def time_tiled() -> dict:
     # Bytes: each input and output once, and P.  Operations: the two
     # products with P (2 H^3 FMA a plane, fewer than the truncated chain's
     # 2cH^2 + 2c^2H at c = 145), the 3-tap band on each side, elementwise.
+    # The kernels run the products on the tensor cores in three TF32 passes
+    # (3 x the products' operations at the TF32 rate), the rest in float32.
     c = Dc.shape[0]
     lowpass = 2 * min(2 * c * h * h + 2 * c * c * h, 2 * h ** 3)
     blur = 2 * (2 * h * h * taps.numel())
     plane_bytes, mat_bytes = planes * h * h * 4, h * h * 4
-    work = {
-        "fused_trigger_fwd": (4 * plane_bytes + mat_bytes + taps.numel() * 4, (lowpass + blur + 4 * h * h) * planes),
-        "fused_trigger_bwd": (4 * plane_bytes + mat_bytes + taps.numel() * 4, (lowpass + blur + 3 * h * h) * planes),
-        "low_freq": (2 * plane_bytes + mat_bytes, lowpass * planes),
+    trigger_bytes = 4 * plane_bytes + mat_bytes + taps.numel() * 4
+    work = {  # (bytes, products' operations, other operations)
+        "fused_trigger_fwd": (trigger_bytes, lowpass * planes, (blur + 4 * h * h) * planes),
+        "fused_trigger_bwd": (trigger_bytes, lowpass * planes, (blur + 3 * h * h) * planes),
+        "low_freq": (2 * plane_bytes + mat_bytes, lowpass * planes, 0),
     }
     out = {}
     for name, (kernel, plain, lib) in calls.items():
-        bound_ms, bound_by = _bound_ms(*work[name])
+        nbytes, products, other = work[name]
+        bound_ms, bound_by = _bound_ms(nbytes, other, 3 * products)
+        bound_f32_ms, _ = _bound_ms(nbytes, products + other)
         traced = _traced_chain_us(kernel)
         out[name] = {"planes": planes, "H": h, "ms": _event_ms(kernel), "traced_us": traced, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "plain_ms": _event_ms(plain), "library_ms": _event_ms(lib)}
+                     "bound_by": bound_by, "bound_f32_fma_ms": bound_f32_ms, "plain_ms": _event_ms(plain),
+                     "library_ms": _event_ms(lib)}
         print(f"  {name} at {h} px, {planes} planes: {out[name]['ms']:.4f} ms (traced {traced}; plain "
               f"{out[name]['plain_ms']:.4f}, library {out[name]['library_ms']:.4f}, bound {bound_ms:.4f} by "
-              f"{bound_by})", flush=True)
+              f"{bound_by} with 3xTF32 products, {bound_f32_ms:.4f} in float32 FMA)", flush=True)
     return out
 
 
 def _traced_chain_us(fn, reps: int = 20) -> dict:
     """Device time (us) of one call of ``fn``, a tiled kernel's chain of
     launches, from a ``torch.profiler`` trace of ``reps`` calls: the sum over
-    its launches, and the share of the products and of the band passes."""
+    its launches, and the share of the products (``product_kernel``), K1's
+    one-pass blur (``blur_kernel``) and the band passes (the rest)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -503,11 +523,12 @@ def _traced_chain_us(fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    parts = {"product": 0.0, "band": 0.0}
+    parts = {"product": 0.0, "blur": 0.0, "band": 0.0}
     n = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and "tiled::" in e.name:
-            parts["product" if "product_kernel" in e.name else "band"] += e.time_range.elapsed_us()
+            part = "product" if "product_kernel" in e.name else "blur" if "blur_kernel" in e.name else "band"
+            parts[part] += e.time_range.elapsed_us()
             n += 1
     if not n:
         return {"total": None, "note": "not measured (no device event in the trace)"}

@@ -6,9 +6,11 @@
 //   K3 combat_low_freq            <- _low_freq_kernel / _low_freq_pallas_impl
 //
 // Every (image, channel) plane of an NCHW float32 batch is contiguous, so a
-// block works on whole planes and needs no transposes.  All products are
-// full float32 FMA: no TF32, because the port is held to the JAX package at
-// the 1e-5 level and the low-pass sees values up to 255.
+// block works on whole planes and needs no transposes.  All products here
+// are full float32 FMA: no TF32, because the port is held to the JAX package
+// at the 1e-5 level and the low-pass sees values up to 255 (the tiled
+// kernels above 64 px use the tensor cores in three TF32 passes, which keep
+// that accuracy).
 //
 // Bound at the slice's shapes (384 planes of 32x32, cutoff c = 20, 3 taps):
 // K1 and K2 read two 1.57 MB arrays and write two, 6.3 MB or ~1.88 us at
@@ -72,9 +74,10 @@
 // tiles (2.5 load wavefronts a warp per 4 FMAs a lane), not yet measured.
 //
 // Planes above 64 px (imagenet10's 224) take the tiled kernels of
-// trigger_tiled.cuh: the same three functions as chains of batched,
-// register-tiled products and band passes, each logical kernel one entry
-// point (combat_*_tiled) and one wrapper call.
+// trigger_tiled.cuh: the same three functions as chains of batched
+// tensor-core products with P (three TF32 passes), K1's blur in one pass and
+// K2's adjoint band passes, each logical kernel one entry point
+// (combat_*_tiled) and one wrapper call.
 //
 // Plain C interface, loaded with ctypes; every entry point returns
 // cudaGetLastError() so a refused launch is reported to the caller.
@@ -517,29 +520,50 @@ int launch_trigger(const void* a, const void* b, const void* Dc, const void* tap
 // Launchers of the tiled kernels (H > 64)
 // ---------------------------------------------------------------------------
 
-// C_b = alpha * (A_b B_b + shift) (+ addend_b) for `planes` planes; a plane
-// stride of 0 shares that operand (P) across the batch.
-cudaError_t product(const float* A, long long a_stride, const float* B, long long b_stride, float* C,
-                    const float* addend, int planes, int H, float alpha, float shift, cudaStream_t stream) {
-  const int tiles = (H + tiled::kTile - 1) / tiled::kTile;
-  const size_t n = static_cast<size_t>(H) * H;
-  for (int p0 = 0; p0 < planes; p0 += tiled::kMaxPlanesPerLaunch) {
-    const dim3 grid(tiles * tiles, std::min(planes - p0, tiled::kMaxPlanesPerLaunch));
-    tiled::product_kernel<<<grid, tiled::kThreads, 0, stream>>>(
-        A + p0 * a_stride, a_stride, B + p0 * b_stride, b_stride, C + p0 * n,
-        addend != nullptr ? addend + p0 * n : nullptr, H, tiles, alpha, shift);
-    const cudaError_t err = cudaGetLastError();
+// C = alpha * ((A_b P)^T per plane + shift) (+ addend) for `planes` planes
+// of A, with P given split in fragment order, Ps (tiled::product_kernel).
+// Shared memory above 48 KB is opted into at every call, which costs a host
+// call and no device time.
+cudaError_t product(const float* A, const float* Ps, float* C, const float* addend, int planes, int H, float alpha,
+                    float shift, cudaStream_t stream) {
+  static int sms = 0;  // persistent blocks: one an SM
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
-  return cudaSuccess;
+  const long long rows = static_cast<long long>(planes) * H;
+  const int tiles_n = (H + tiled::kBN - 1) / tiled::kBN;
+  const long long tiles_m = (rows + tiled::kBM - 1) / tiled::kBM;
+  const int per_n = static_cast<int>(std::min<long long>(tiles_m, std::max(1, sms / tiles_n)));
+  if ((reinterpret_cast<uintptr_t>(Ps) & 15) != 0) return cudaErrorMisalignedAddress;
+  const bool vec = (H & 3) == 0 && (reinterpret_cast<uintptr_t>(A) & 15) == 0;
+  const cudaError_t err = prepare(tiled::product_kernel, tiled::kProductSmem);
+  if (err != cudaSuccess) return err;
+  tiled::product_kernel<<<per_n * tiles_n, tiled::kProductThreads, tiled::kProductSmem, stream>>>(
+      A, Ps, C, addend, rows, H, tiles_n, per_n, alpha, shift, vec);
+  return cudaGetLastError();
 }
 
-template <bool Rows, bool Adjoint>
+// out = B clip(u, -1, 1) B^T (tiled::blur_kernel).
+cudaError_t blur(const float* u, float* out, const float* taps, int planes, int H, int k, cudaStream_t stream) {
+  const int tiles_i = (H + tiled::kBlurRows - 1) / tiled::kBlurRows;
+  const int tiles_j = (H + tiled::kBlurCols - 1) / tiled::kBlurCols;
+  const long long blocks = static_cast<long long>(tiles_i) * tiles_j * planes;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tiled::blur_kernel<<<static_cast<unsigned>(blocks), tiled::kBlurThreads, 0, stream>>>(u, out, taps, H, k, tiles_i,
+                                                                                       tiles_j);
+  return cudaGetLastError();
+}
+
+// K2's adjoint band pass (tiled::band_kernel), one thread an output element.
+template <bool Rows>
 cudaError_t band(const float* src, float* dst, const float* taps, const float* mask, int planes, int H, int k,
-                 bool clip, cudaStream_t stream) {
+                 cudaStream_t stream) {
   const size_t total = static_cast<size_t>(planes) * H * H;
-  const unsigned blocks = static_cast<unsigned>((total + tiled::kThreads - 1) / tiled::kThreads);
-  tiled::band_kernel<Rows, Adjoint><<<blocks, tiled::kThreads, 0, stream>>>(src, dst, taps, mask, H, k, total, clip);
+  const unsigned blocks = static_cast<unsigned>((total + tiled::kBlurThreads - 1) / tiled::kBlurThreads);
+  tiled::band_kernel<Rows><<<blocks, tiled::kBlurThreads, 0, stream>>>(src, dst, taps, mask, H, k, total);
   return cudaGetLastError();
 }
 
@@ -572,51 +596,51 @@ int combat_low_freq(const void* x, const void* P, void* out, int planes, int H, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1 above 64 px: Z = N P; u = x + noise_rate * (P Z + shift); R = clip(u)
-// B^T; out = B R.  `ws` holds Z, then R (planes x H x H floats).
-int combat_fused_trigger_fwd_tiled(const void* x, const void* nz, const void* P, const void* taps, void* out,
+// K1 above 64 px: W = (N P)^T; u = x + noise_rate * ((W P)^T + shift);
+// out = B clip(u) B^T.  `Ps` is P split into big and small TF32 parts in the
+// products' fragment order (H x 2 Kp floats, Kp = 8 ceil(H / 8)); `ws` holds W
+// (planes x H x H floats).
+int combat_fused_trigger_fwd_tiled(const void* x, const void* nz, const void* Ps, const void* taps, void* out,
                                    void* u, void* ws, int planes, int H, int c, int k, float noise_rate,
                                    void* stream) {
   if (!tiled_args_ok(planes, H, c, k)) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(H) * H;
   const float *fx = static_cast<const float*>(x), *fn = static_cast<const float*>(nz),
-              *fP = static_cast<const float*>(P), *ft = static_cast<const float*>(taps);
+              *fP = static_cast<const float*>(Ps), *ft = static_cast<const float*>(taps);
   float *fo = static_cast<float*>(out), *fu = static_cast<float*>(u), *fw = static_cast<float*>(ws);
-  cudaError_t err = product(fn, n, fP, 0, fw, nullptr, planes, H, 1.f, 0.f, st);
-  if (err == cudaSuccess) err = product(fP, 0, fw, n, fu, fx, planes, H, noise_rate, c > 0 ? 0.f : -1.f, st);
-  if (err == cudaSuccess) err = band<false, false>(fu, fw, ft, nullptr, planes, H, k, true, st);
-  if (err == cudaSuccess) err = band<true, false>(fw, fo, ft, nullptr, planes, H, k, false, st);
+  cudaError_t err = product(fn, fP, fw, nullptr, planes, H, 1.f, 0.f, st);
+  if (err == cudaSuccess) err = product(fw, fP, fu, fx, planes, H, noise_rate, c > 0 ? 0.f : -1.f, st);
+  if (err == cudaSuccess) err = blur(fu, fo, ft, planes, H, k, st);
   return static_cast<int>(err);
 }
 
 // K2 above 64 px: R = g B; g_u = (B^T R) * 1{-1 <= u <= 1}, written as g_x;
-// Z = g_u P; g_n = noise_rate * P Z.  `ws` holds R, then Z.
-int combat_fused_trigger_bwd_tiled(const void* g, const void* u, const void* P, const void* taps, void* gx,
+// W = (g_u P)^T; g_n = noise_rate * (W P)^T.  `Ps` as in K1; `ws` holds R,
+// then W.
+int combat_fused_trigger_bwd_tiled(const void* g, const void* u, const void* Ps, const void* taps, void* gx,
                                    void* gn, void* ws, int planes, int H, int c, int k, float noise_rate,
                                    void* stream) {
   if (!tiled_args_ok(planes, H, c, k)) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(H) * H;
   const float *fg = static_cast<const float*>(g), *fu = static_cast<const float*>(u),
-              *fP = static_cast<const float*>(P), *ft = static_cast<const float*>(taps);
+              *fP = static_cast<const float*>(Ps), *ft = static_cast<const float*>(taps);
   float *fgx = static_cast<float*>(gx), *fgn = static_cast<float*>(gn), *fw = static_cast<float*>(ws);
-  cudaError_t err = band<false, true>(fg, fw, ft, nullptr, planes, H, k, false, st);
-  if (err == cudaSuccess) err = band<true, true>(fw, fgx, ft, fu, planes, H, k, false, st);
-  if (err == cudaSuccess) err = product(fgx, n, fP, 0, fw, nullptr, planes, H, 1.f, 0.f, st);
-  if (err == cudaSuccess) err = product(fP, 0, fw, n, fgn, nullptr, planes, H, noise_rate, 0.f, st);
+  cudaError_t err = band<false>(fg, fw, ft, nullptr, planes, H, k, st);
+  if (err == cudaSuccess) err = band<true>(fw, fgx, ft, fu, planes, H, k, st);
+  if (err == cudaSuccess) err = product(fgx, fP, fw, nullptr, planes, H, 1.f, 0.f, st);
+  if (err == cudaSuccess) err = product(fw, fP, fgn, nullptr, planes, H, noise_rate, 0.f, st);
   return static_cast<int>(err);
 }
 
-// K3 above 64 px: Z = X P; out = P Z.  `ws` holds Z.
-int combat_low_freq_tiled(const void* x, const void* P, void* out, void* ws, int planes, int H, void* stream) {
+// K3 above 64 px: W = (X P)^T; out = (W P)^T = P X P.  `Ps` as in K1; `ws`
+// holds W.
+int combat_low_freq_tiled(const void* x, const void* Ps, void* out, void* ws, int planes, int H, void* stream) {
   if (!tiled_args_ok(planes, H, 1, 1)) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(H) * H;
-  const float* fP = static_cast<const float*>(P);
+  const float* fP = static_cast<const float*>(Ps);
   float* fw = static_cast<float*>(ws);
-  cudaError_t err = product(static_cast<const float*>(x), n, fP, 0, fw, nullptr, planes, H, 1.f, 0.f, st);
-  if (err == cudaSuccess) err = product(fP, 0, fw, n, static_cast<float*>(out), nullptr, planes, H, 1.f, 0.f, st);
+  cudaError_t err = product(static_cast<const float*>(x), fP, fw, nullptr, planes, H, 1.f, 0.f, st);
+  if (err == cudaSuccess) err = product(fw, fP, static_cast<float*>(out), nullptr, planes, H, 1.f, 0.f, st);
   return static_cast<int>(err);
 }
 

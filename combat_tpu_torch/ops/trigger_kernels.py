@@ -47,12 +47,15 @@ its bound at the slice's shapes.
 Planes above 64 px (imagenet10's 224) take the tiled kernels of
 ``csrc/trigger_tiled.cuh``: one plane and its operator no longer fit one
 block's shared memory, so each logical kernel is a chain of launches over
-the batch, with one workspace tensor the wrapper allocates: batched
-register-tiled products with the projector P (K3: X P, then P Z; K1 and K2
-the same two with their epilogues) and band passes of the blur, one output
-element a thread.  There they are bound by operations (2 H^3 FMA a plane
-for the two products), not bytes.  Each wrapper call still counts one
-launch in :data:`LAUNCHES`.
+the batch, with one workspace tensor the wrapper allocates.  Both products
+with the projector P are one tensor-core kernel, the batch's stacked rows
+times P stored transposed per plane (P is exactly symmetric, so
+P Z = (Z^T P)^T), in three TF32 passes that keep float32 accuracy
+(:func:`tf32_product` emulates them; the wrapper hands the kernel P split
+once, in the order its fragments read it); K1's blur is one pass through
+shared memory and K2's adjoint blur two band passes.  There they are bound by the
+tensor cores' operations (3 x 2 H^3 TF32 FMA a plane), not bytes.  Each
+wrapper call still counts one launch in :data:`LAUNCHES`.
 
 Beside each kernel: its plain PyTorch version, which keeps the JAX kernels'
 dense (D, M, B) form, is the CPU path and what ``chip_smoke.py`` compares the
@@ -195,14 +198,31 @@ def lowpass_projector(h: int, ratio: float, device: str) -> torch.Tensor:
     """P = D_c^T D_c, the (h, h) operand of K3 (and of K1/K2 above 64 px):
     the symmetric projector onto the first ``c = int(h*ratio)`` DCT basis
     vectors, so the low-pass of a plane y is P y P.  Built in float64,
-    stored in float32."""
+    stored in float32, and exactly symmetric: the tiled products rest on
+    P = P^T."""
     return _projector(h, int(h * ratio), device)
 
 
 @functools.lru_cache(maxsize=None)
 def _projector(h: int, cutoff: int, device: str) -> torch.Tensor:
     dc = _dct_matrix_np(h)[:cutoff]
-    return torch.tensor(dc.T @ dc, dtype=torch.float32, device=device)
+    p = dc.T @ dc
+    return torch.tensor((p + p.T) / 2, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _projector_split(h: int, cutoff: int, device: str) -> torch.Tensor:
+    """P split once as :func:`tf32_product` splits it, in the order the tiled
+    products' fragments read it: row n, for each 8-deep block of k,
+    big(t), big(t+4) for t = 0..3, then small(t), small(t+4); the depth
+    padded with zeros to a multiple of 8.  An (h, 2 kp) float32 tensor."""
+    kp = -(-h // 8) * 8
+    p = torch.zeros((h, kp), dtype=torch.float32, device=device)
+    p[:, :h] = _projector(h, cutoff, device)
+    big = tf32_round(p)
+    parts = torch.stack((big, tf32_round(p - big)), dim=1)  # (h, 2, kp): big, small
+    # k = 8 block + 4 half + t  ->  (block, part, t, half)
+    return parts.reshape(h, 2, kp // 8, 2, 4).permute(0, 2, 1, 4, 3).reshape(h, 2 * kp).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -228,6 +248,31 @@ def fused_trigger_bwd_plain(g, u, B, D, M, noise_rate: float):
 
 def low_freq_plain(x, D, M):
     return _lowpass_plain((x + 1.0) * 127.5, D, M) * (2.0 / 255.0) - 1.0
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: by masking the bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_product(a: torch.Tensor, P: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``a @ P`` in float32 as the tiled kernels' tensor cores compute it
+    (tests only): each operand split into big = tf32(v) and small =
+    tf32(v - big), then small.big + big.small + big.big (``passes`` 3), or
+    big.big alone (``passes`` 1, which the kernels never run)."""
+    a_big, p_big = tf32_round(a), tf32_round(P)
+    if passes == 1:
+        return a_big @ p_big
+    return tf32_round(a - a_big) @ p_big + a_big @ tf32_round(P - p_big) + a_big @ p_big
+
+
+def low_freq_tf32(x: torch.Tensor, P: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """The tiled K3's chain on (..., H, H) planes, emulated (tests only):
+    W = (X P)^T, out = (W P)^T, each product by :func:`tf32_product`."""
+    w = tf32_product(x, P, passes).transpose(-1, -2)
+    return tf32_product(w, P, passes).transpose(-1, -2)
 
 
 # --------------------------------------------------------------------------
@@ -287,9 +332,9 @@ def _launch_trigger(lib, a, b, taps, Dc, noise_rate: float, name: str):
             n_planes, h, c, k, float(noise_rate), _stream(),
         )
     else:
-        P, ws = _projector(h, c, str(a.device)), torch.empty_like(a)
+        Ps, ws = _projector_split(h, c, str(a.device)), torch.empty_like(a)
         err = getattr(lib, f"combat_{name}_tiled")(
-            a.data_ptr(), b.data_ptr(), P.data_ptr(), taps.data_ptr(), o0.data_ptr(), o1.data_ptr(), ws.data_ptr(),
+            a.data_ptr(), b.data_ptr(), Ps.data_ptr(), taps.data_ptr(), o0.data_ptr(), o1.data_ptr(), ws.data_ptr(),
             n_planes, h, c, k, float(noise_rate), _stream(),
         )
     _raise_on(err, name)
@@ -340,13 +385,13 @@ def low_freq_planes(x, ratio: float):
     if _on_cpu(x):
         return low_freq_plain(x, *trigger_operands(h, ratio, str(x.device)))
     n_planes, h = _check_cuda(x)
-    P = lowpass_projector(h, ratio, str(x.device))
     out = torch.empty_like(x)
     if h <= PLANE_PER_BLOCK_MAX:
+        P = lowpass_projector(h, ratio, str(x.device))
         err = build().combat_low_freq(x.data_ptr(), P.data_ptr(), out.data_ptr(), n_planes, h, _stream())
     else:
-        ws = torch.empty_like(x)
-        err = build().combat_low_freq_tiled(x.data_ptr(), P.data_ptr(), out.data_ptr(), ws.data_ptr(), n_planes, h,
+        Ps, ws = _projector_split(h, int(h * ratio), str(x.device)), torch.empty_like(x)
+        err = build().combat_low_freq_tiled(x.data_ptr(), Ps.data_ptr(), out.data_ptr(), ws.data_ptr(), n_planes, h,
                                             _stream())
     _raise_on(err, "low_freq")
     LAUNCHES["low_freq"] += 1

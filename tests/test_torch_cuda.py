@@ -11,7 +11,11 @@ summation order than cuBLAS, on values of order 1 to 10.  K1/K2 are held at
 full and a ragged plane count; K3 at 28-64 px and the cutoffs c = 1,
 0.65 H and H.  Above 64 px the tiled kernels are held the same way at 65,
 100 and 224 px (imagenet10: bs 32, 96 planes), and one alternated step at
-96 px runs them inside the step, card against CPU.
+96 px runs them inside the step, card against CPU.  Two checks of the tiled
+design: K3 at 224 px within 2e-5 of its plain version, which three TF32
+passes meet and one (~1e-3) does not; and K1's one-pass blur against the
+dense B clip(u) B^T on K1's own u, within 1e-5 (a k-tap sum of values in
+[-1, 1]; the low-pass's rounding does not enter).
 """
 
 import pytest
@@ -196,6 +200,32 @@ def test_tiled_low_freq_kernel_and_autograd_match_plain(dev, h, planes, ratio):
     (ref_gx,) = torch.autograd.grad(ref, xp, grad_outputs=g)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     torch.testing.assert_close(gx, ref_gx, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", [RATIO, 1.0], ids=["c145", "c=H"])
+def test_tiled_low_freq_at_224_is_within_2e5_of_plain(dev, ratio):
+    """The tensor-core products keep float32 accuracy: one TF32 pass errs
+    ~1e-3 here, three passes ~3e-6."""
+    x, _, _ = _planes(dev, 96, 224)
+    D, M = tk.trigger_operands(224, ratio, str(dev))
+    out = tk.low_freq_planes(x, ratio)
+    torch.testing.assert_close(out, tk.low_freq_plain(x, D, M), atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("h,planes", [(65, 383), (100, 383), (224, 95)], ids=["H65", "H100", "H224"])
+def test_tiled_blur_matches_the_dense_blur(dev, h, planes, k):
+    """K1's one-pass blur (halo tiles through shared memory) against the
+    dense B clip(u) B^T on K1's own u: sigma 0.9, where B^T != B at the
+    reflect borders; ragged plane counts; H not a multiple of the 32-wide
+    tile (65, 100)."""
+    x, noise, _ = _planes(dev, planes, h)
+    taps = gaussian_kernel_1d(k, 0.9, device=dev)
+    B = blur_matrix(taps, h)
+    out, u = tk.fused_trigger_fwd(x, noise, taps, tk.truncated_dct(h, RATIO, str(dev)), NOISE_RATE)
+    torch.testing.assert_close(out, B @ u.clamp(-1.0, 1.0) @ B.T, atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

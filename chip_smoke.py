@@ -22,7 +22,9 @@ Phases, each printing one line with its seconds:
      in three TF32 passes, as the kernels run them, and in float32 FMA),
      with their traced device time summed over each chain's launches and
      split into products, K1's one-pass blur and K2's band passes (the
-     ``h224`` entry of each kernel's row);
+     ``h224`` entry of each kernel's row); the tiled kernels are held at
+     257 and 300 px too, where the products read the projector's depth in
+     windows;
   3. ``train_clean_classifier`` at full width (PreActResNet18, bs 128,
      1024 synthetic images: 8 steps, then eval);
   4. ``train_generator`` on that checkpoint, fused trigger (K1/K2): 8
@@ -50,19 +52,31 @@ Phases, each printing one line with its seconds:
      steps, then eval), through the tiled kernels: 5m the clean
      classifier, 5n the generator (K1/K2), 5o the generator on K3, 5p the
      victim (K1), 5q the final eval;
+  5r-5t. ``--compute_dtype bfloat16``, each phase held to the counts in
+     ``BF16_PHASES``, which are its float32 counterpart's (the trigger stays
+     float32): 5r the cifar10 clean classifier, generator (K1/K2 and K3),
+     victim and eval, 5s the input-aware and multilabel generators, 5t the
+     imagenet10 generator at 224 px (the tiled K1/K2) on 5m's float32
+     clean model and a float32 victim of it; every checkpoint holds float32
+     parameters and statistics;
   6. one alternated step and one victim step at full width on the card
      against the same step on the CPU, from the same weights and draws, one
      input-aware and one multilabel step (bs 32), and one alternated step
      at 96 px (ResNet18, bs 4) where the tiled K1/K2 run inside the step;
+     then the alternated and victim steps in bfloat16 on the card and on
+     the CPU on six seeds, held by the gap criterion of
+     ``combat_tpu_torch/utils/gap.py`` with the card's float32 step as the
+     yardstick;
   7. the steady-state alternated step at full width (bs 128), timed on the
      host clock around synchronised runs of 10 steps, on the three trigger
      routes (K1/K2, K3, ATen) and in both metric modes, the victim step
      on the K1 and ATen routes, and each variant's step on the K1/K2 route;
      then (5 steps each) the imagenet10 alternated step at 224 px, bs 32 on
      the K1/K2 and ATen routes with the K1/K2 step's peak device memory,
-     the imagenet10 victim step, and the celeba alternated step (bs 128).
+     the imagenet10 victim step, and the celeba alternated step (bs 128);
+     all of it in float32, then in bfloat16, each row named by its dtype.
 Then one JSON line of the kernels (launches on the main path, phases 3-5,
-5c-5e, 5f-5k and 5l-5q, errors, times, bounds) and, last,
+5c-5e, 5f-5k, 5l-5q and 5r-5t, errors, times, bounds) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
@@ -391,10 +405,12 @@ def _traced_us(calls: dict, reps: int = 50) -> dict:
 
 def check_tiled() -> dict:
     """K1-K3 above 64 px (the tiled kernels of ``csrc/trigger_tiled.cuh``)
-    against their plain versions: at 224 px (96 planes, imagenet10's bs 32)
-    and at H = 100 (not a multiple of the 64-wide tile; 383 planes).  K1/K2
-    forward and backward with 3 and 5 taps (sigma 0.9: B^T != B), K3
-    forward and through autograd.  Returns the largest error of each."""
+    against their plain versions: at 224 px (96 planes, imagenet10's bs 32),
+    at H = 100 (not a multiple of the 64-wide tile; 383 planes), and at 257
+    and 300 px, where the products read the projector's depth in windows of
+    224.  K1/K2 forward and backward with 3 and 5 taps (sigma 0.9: B^T !=
+    B), K3 forward and through autograd.  Returns the largest error of
+    each."""
     import torch
 
     from combat_tpu_torch.ops import trigger_kernels as tk
@@ -402,7 +418,7 @@ def check_tiled() -> dict:
     from combat_tpu_torch.ops.dct import low_freq
 
     worst = dict.fromkeys(KERNEL_NAMES, 0.0)
-    for h, planes in ((H_LARGE, PLANES_LARGE), (100, BS * C - 1)):
+    for h, planes in ((H_LARGE, PLANES_LARGE), (100, BS * C - 1), (257, PLANES_LARGE), (300, PLANES_LARGE - 1)):
         x, noise, g = (t[:planes] for t in _trigger_inputs(h, seed=h))
         D, M = tk.trigger_operands(h, RATIO, "cuda")
         Dc = tk.truncated_dct(h, RATIO, "cuda")
@@ -694,6 +710,96 @@ def variant_step_agreement() -> None:
                ((c_gpu, c_cpu), (g_gpu, g_cpu)))
 
 
+# Phase 6's bfloat16 steps run on these seeds (weights, batch and draws): a
+# loss, or a tensor of a few numbers, is one draw of the rounding noise, and
+# six steps show whether a ratio stays high or was one draw.
+BF16_SEEDS = (1, 2, 3, 4, 5, 6)
+
+
+def bf16_step_agreement() -> None:
+    """Phase 6 in bfloat16: on each of ``BF16_SEEDS``, one full-width
+    cifar10 alternated step and one victim step (bs 16) on the card in
+    float32 and in bfloat16 and on the CPU in bfloat16, from the same
+    weights and draws, held by the gap criterion of
+    ``combat_tpu_torch/utils/gap.py``: the CPU's bfloat16 step is the
+    reference low-precision run and the card's float32 step its float32
+    run.  Each seed's counts, parameters and statistics are held alone; the
+    losses of all seeds together.  Every failure is printed before the
+    phase fails."""
+    import torch
+
+    from combat_tpu_torch.cli.common import setup_device
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator, set_compute_dtype
+    from combat_tpu_torch.train import (
+        TrainState,
+        draw_alternated,
+        draw_victim,
+        freeze,
+        make_alternated_train_step,
+        make_victim_train_step,
+        multistep_lr,
+    )
+    from combat_tpu_torch.utils import gap
+
+    cfg = apply_dataset_preset(Config(compute_dtype="bfloat16"))
+    setup_device(cfg)  # TF32 off; the bfloat16 products reduce in float32
+    sched = multistep_lr(0.01, (100,), 0.1, 10)
+    steps = {"alternated step": ("loss_ce", "loss_l2", "clean_model_loss", "loss_grad_l2"), "victim step": ("loss_ce",)}
+    failures, losses = [], {what: ([], [], []) for what in steps}
+    for seed in BF16_SEEDS:
+        torch.manual_seed(seed)
+        weights = [get_classifier(cfg), get_generator(cfg), get_classifier(cfg), get_frequency_detector(cfg)]
+        gen = torch.Generator().manual_seed(100 + seed)
+        x = torch.rand((16, 3, 32, 32), generator=gen) * 2 - 1
+        y = torch.arange(16) % 4
+        poisoned = torch.arange(16) % 3 == 0
+        draws = draw_alternated(cfg, 16, gen, "cpu")
+        vdraws = draw_victim(cfg, 16, gen, "cpu")
+        runs = {what: {} for what in steps}
+        for name, dev, dtype in (("card f32", "cuda", None), ("card bf16", "cuda", torch.bfloat16),
+                                 ("cpu bf16", "cpu", torch.bfloat16)):
+            C, G, cm, nf = (set_compute_dtype(copy.deepcopy(m), dtype).to(dev) for m in weights)
+            stateC, stateG = TrainState(C, sched), TrainState(G, sched)
+            m = make_alternated_train_step(cfg, C, G)(stateC, stateG, freeze(cm), freeze(nf),
+                                                      (x.to(dev), y.to(dev)), draws=_to(draws, dev))
+            runs["alternated step"][name] = ({k: float(v) for k, v in m.items()}, (C.state_dict(), G.state_dict()))
+            C, G = (set_compute_dtype(copy.deepcopy(m), dtype).to(dev) for m in weights[:2])
+            stateC = TrainState(C, sched)
+            m = make_victim_train_step(cfg, C, freeze(G))(stateC, (x.to(dev), y.to(dev), poisoned.to(dev)),
+                                                          draws=_to(vdraws, dev))
+            runs["victim step"][name] = ({k: float(v) for k, v in m.items()}, (C.state_dict(),))
+        for what, keys in steps.items():
+            (m32, sd32), (m_lo, sd_lo), (m_cpu, sd_cpu) = (runs[what][n] for n in ("card f32", "card bf16", "cpu bf16"))
+            models = [("CG"[i], lo, f32, cpu, f32) for i, (lo, f32, cpu) in enumerate(zip(sd_lo, sd32, sd_cpu))]
+            failures += [f"seed {seed} {f}" for f in gap.count_failures(what, m_lo, m_cpu,
+                                                                          [k for k in m_cpu if k not in keys])]
+            failures += [f"seed {seed} {what} {f}" for f in gap.state_failures(models, f32_tol=1e-4)]
+            for vector, m in zip(losses[what], (m_lo, m_cpu, m32)):
+                vector.extend(m[k] for k in keys)
+            flat = [torch.cat([sd[k].detach().cpu().double().reshape(-1) for sd in sds for k in sd
+                               if sd[k].is_floating_point()]) for sds in (sd_lo, sd32, sd_cpu)]
+            g, a, b, _ = gap.ratios(flat[0], flat[1], flat[2], flat[1])
+            tensors = [(f"{name}.{k}", cpu[k].numel(), *gap.ratios(lo[k], f32[k], cpu[k], f32[k])[1:3])
+                       for name, lo, f32, cpu, _ in models for k in cpu
+                       if cpu[k].is_floating_point() and gap.rms(cpu[k].double() - f32[k].cpu().double()) > 0.0]
+            big = [t for t in tensors if t[1] >= gap.MIN_NUMEL]
+            worst_a, worst_b = max(big, key=lambda t: t[2]), max(big, key=lambda t: t[3])
+            print(f"  card vs CPU, one bfloat16 {what}, seed {seed}: loss_ce {m_lo['loss_ce']:.6f} vs "
+                  f"{m_cpu['loss_ce']:.6f} (float32 {m32['loss_ce']:.6f}); every tensor: gap {g:.3e}, a = c {a:.3f}, "
+                  f"b {b:.3f}; worst of {gap.MIN_NUMEL} or more numbers a {worst_a[2]:.3f} ({worst_a[0]}), b "
+                  f"{worst_b[3]:.3f} ({worst_b[0]}); smaller (a, b): "
+                  + ", ".join(f"{k} {ra:.2f} {rb:.2f}" for k, n, ra, rb in tensors if n < gap.MIN_NUMEL), flush=True)
+    for what, (card, cpu, f32) in losses.items():
+        g, b = gap.loss_ratio(card, cpu, f32)
+        print(f"  card vs CPU, the bfloat16 {what}s' {len(card)} losses over seeds {BF16_SEEDS}: gap {g:.3e}, "
+              f"b {b:.3f} (<= {gap.BETA})", flush=True)
+        failure = gap.loss_failure(f"{what} losses", card, cpu, f32)
+        failures += [failure] if failure else []
+    if failures:
+        raise SystemExit("\n".join(failures))
+
+
 # Phase 7's trigger routes: (--pallas_trigger, --pallas_lowfreq).
 ROUTES = {"pallas_trigger": (True, False), "lowfreq_kernel": (False, True), "aten": (False, False)}
 
@@ -717,11 +823,21 @@ def _ms_per_step(run, warm: int = 3, iters: int = 10) -> float:
 
 
 def step_times() -> dict:
-    """Phase 7: ms per step at full width, bs 128: the alternated step on
-    each trigger route and in both metric modes, the victim step on the K1
-    and ATen routes, and the victim step's parts, each timed alone."""
+    """Phase 7: the steady-state steps in float32, then the same steps in
+    bfloat16 (``--compute_dtype``), in one run; every row names its dtype."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        out.update(_step_times(dtype))
+    return out
+
+
+def _step_times(dtype: str) -> dict:
+    """ms per step at full width, bs 128, in ``dtype``: the alternated step
+    on each trigger route and in both metric modes, the victim step on the
+    K1 and ATen routes, and the victim step's parts, each timed alone."""
     import torch
 
+    from combat_tpu_torch.cli.common import setup_device
     from combat_tpu_torch.config import Config, apply_dataset_preset
     from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
     from combat_tpu_torch.train import (
@@ -735,7 +851,8 @@ def step_times() -> dict:
     )
     from combat_tpu_torch.train.steps import _aug_fn, _trigger_fn
 
-    dev = torch.device("cuda", 0)
+    base = apply_dataset_preset(Config(compute_dtype=dtype))
+    dev = setup_device(base)  # TF32 off; bfloat16 products reduce in float32
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.rand((BS, C, H, H), generator=gen, device=dev) * 2 - 1
     y = torch.randint(0, 10, (BS,), generator=gen, device=dev)
@@ -744,14 +861,12 @@ def step_times() -> dict:
     out = {}
 
     def record(key, ms, bs=BS):
-        out[key] = {"ms_per_step": ms, "images_per_s": bs * 1e3 / ms}
-        print(f"  step {key}: {ms:.3f} ms ({bs * 1e3 / ms:.0f} img/s)", flush=True)
+        out[f"{dtype}/{key}"] = {"ms_per_step": ms, "images_per_s": bs * 1e3 / ms}
+        print(f"  step {dtype} {key}: {ms:.3f} ms ({bs * 1e3 / ms:.0f} img/s)", flush=True)
 
     for route, (fused, lowfreq) in ROUTES.items():
         for mode in ("full", "loss_only"):
-            cfg = apply_dataset_preset(Config()).replace(
-                pallas_trigger=fused, pallas_lowfreq=lowfreq, train_metrics=mode
-            )
+            cfg = base.replace(pallas_trigger=fused, pallas_lowfreq=lowfreq, train_metrics=mode)
             torch.manual_seed(4)
             C_, G = get_classifier(cfg).to(dev), get_generator(cfg).to(dev)
             cm, nf = freeze(get_classifier(cfg).to(dev)), freeze(get_frequency_detector(cfg).to(dev))
@@ -760,7 +875,7 @@ def step_times() -> dict:
             record(f"{route}/{mode}", _ms_per_step(lambda: step(stateC, stateG, cm, nf, (x, y), gen)))
     for route in ("pallas_trigger", "aten"):
         fused, lowfreq = ROUTES[route]
-        cfg = apply_dataset_preset(Config()).replace(pallas_trigger=fused, pallas_lowfreq=lowfreq)
+        cfg = base.replace(pallas_trigger=fused, pallas_lowfreq=lowfreq)
         torch.manual_seed(4)
         C_, G = get_classifier(cfg).to(dev), freeze(get_generator(cfg).to(dev))
         stateC = TrainState(C_, sched)
@@ -781,17 +896,18 @@ def step_times() -> dict:
         stateC.apply_gradients()
 
     record("victim parts/C forward, backward, SGD", _ms_per_step(c_update))
-    variant_step_times(x, y, gen, sched, record)
-    out.update(large_step_times(sched, record))
+    variant_step_times(base, x, y, gen, sched, record)
+    out.update(large_step_times(base, sched, record))
     return out
 
 
-def large_step_times(sched, record) -> dict:
-    """Phase 7 above 32 px, full metrics: the imagenet10 alternated step
-    (224 px, bs 32) on the K1/K2 route (the tiled kernels) and the ATen
-    route, with the peak device memory of the K1/K2 step; the imagenet10
-    victim step on K1; the celeba alternated step (64 px, bs 128) on K1/K2.
-    224 px steps take ~1 s, so 2 warm-up and 5 timed steps each."""
+def large_step_times(base, sched, record) -> dict:
+    """Phase 7 above 32 px, full metrics, in ``base``'s compute dtype: the
+    imagenet10 alternated step (224 px, bs 32) on the K1/K2 route (the tiled
+    kernels) and the ATen route, with the peak device memory of the K1/K2
+    step; the imagenet10 victim step on K1; the celeba alternated step (64
+    px, bs 128) on K1/K2.  224 px steps take ~1 s, so 2 warm-up and 5 timed
+    steps each."""
     import torch
 
     from combat_tpu_torch.config import Config, apply_dataset_preset
@@ -801,14 +917,14 @@ def large_step_times(sched, record) -> dict:
     dev = torch.device("cuda", 0)
     memory = {}
     for dataset, routes in (("imagenet10", ("pallas_trigger", "aten")), ("celeba", ("pallas_trigger",))):
-        base = apply_dataset_preset(Config(dataset=dataset))
-        n, h = base.bs if dataset == "imagenet10" else BS, base.input_height
+        data = apply_dataset_preset(Config(dataset=dataset, compute_dtype=base.compute_dtype))
+        n, h = data.bs if dataset == "imagenet10" else BS, data.input_height
         gen = torch.Generator(device=dev).manual_seed(5)
         x = torch.rand((n, C, h, h), generator=gen, device=dev) * 2 - 1
-        y = torch.randint(0, base.num_classes, (n,), generator=gen, device=dev)
+        y = torch.randint(0, data.num_classes, (n,), generator=gen, device=dev)
         for route in routes:
             fused, lowfreq = ROUTES[route]
-            cfg = base.replace(pallas_trigger=fused, pallas_lowfreq=lowfreq)
+            cfg = data.replace(pallas_trigger=fused, pallas_lowfreq=lowfreq)
             torch.manual_seed(4)
             C_, G = get_classifier(cfg).to(dev), get_generator(cfg).to(dev)
             cm, nf = freeze(get_classifier(cfg).to(dev)), freeze(get_frequency_detector(cfg).to(dev))
@@ -823,11 +939,11 @@ def large_step_times(sched, record) -> dict:
                 memory = {"max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                           "resident_before_bytes": resident}
                 peak = memory["max_memory_allocated_bytes"] / 2**30
-                print(f"  imagenet10 K1/K2 step: max_memory_allocated {peak:.3f} GiB "
+                print(f"  imagenet10 {base.compute_dtype} K1/K2 step: max_memory_allocated {peak:.3f} GiB "
                       f"({resident / 2**30:.3f} GiB resident before the step)", flush=True)
             del C_, G, cm, nf, stateC, stateG, step
         if dataset == "imagenet10":
-            cfg = base.replace(pallas_trigger=True)
+            cfg = data.replace(pallas_trigger=True)
             torch.manual_seed(4)
             C_, G = get_classifier(cfg).to(dev), freeze(get_generator(cfg).to(dev))
             stateC = TrainState(C_, sched)
@@ -836,20 +952,19 @@ def large_step_times(sched, record) -> dict:
             record("imagenet10/victim pallas_trigger", _ms_per_step(lambda: vstep(stateC, (x, y, poisoned), gen),
                                                                    warm=2, iters=5), n)
             del C_, G, stateC, vstep
-    return {"imagenet10/memory": memory}
+    return {f"{base.compute_dtype}/imagenet10/memory": memory}
 
 
-def variant_step_times(x, y, gen, sched, record) -> None:
+def variant_step_times(cfg, x, y, gen, sched, record) -> None:
     """Phase 7, the variants: each variant's train step at full width (bs
-    128, full metrics) on the K1/K2 route, and the WaNet victim step."""
+    128, full metrics) on the K1/K2 route, and the WaNet victim step, in
+    ``cfg``'s compute dtype."""
     import torch
 
-    from combat_tpu_torch.config import Config, apply_dataset_preset
     from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
     from combat_tpu_torch.train import TrainState, freeze
     from combat_tpu_torch.train import variants
 
-    cfg = apply_dataset_preset(Config())
     x2 = torch.rand(x.shape, generator=gen, device=x.device) * 2 - 1
     poisoned = torch.rand((x.shape[0],), generator=gen, device=x.device) < 0.05
     for variant, kind in (("wanet", "grid"), ("inputaware", "unet"), ("imperceptible", "unet"),
@@ -980,24 +1095,71 @@ def _save_gates_open():
             setattr(m, name, gate)
 
 
-def run_large_phases(workdir) -> dict:
-    """Phases 5l-5q: each entry point with the launch counts set to 0 just
-    before it, held to its predicted counts just after; its checkpoint
-    finite, its metrics percentages; the celeba generator on the committed
-    celeba detector.  The save gates are open (:func:`_save_gates_open`).
-    Returns each phase's counts."""
+# Phases 5r-5t: --compute_dtype bfloat16 through the entry points.  The
+# trigger runs in float32 in either dtype (the JAX recipe's
+# noise.astype(x.dtype)), so each phase launches K1, K2 and K3 as its float32
+# counterpart does, predicted from the code in the same way: 5r the cifar10
+# main path (the counterparts of 3, 4, 5, 5c and 5e at 256 images: 2 steps,
+# then one eval batch of 51 rows), 5s the input-aware and multilabel generators
+# (5g, 5j), 5t the imagenet10 generator at 224 px through the tiled K1/K2
+# (5n) on 5m's float32 clean model, then a float32 victim of that bfloat16
+# generator (5p): checkpoints cross between the dtypes.  Every checkpoint
+# holds float32 parameters and statistics.
+_BF16 = ["--compute_dtype", "bfloat16"]
+_CIFAR_BF16 = ["--dataset", "cifar10", "--bs", "128", "--synthetic_size", "256"] + _BF16
+BF16_PHASES = (  # (phase, entry point, saving prefix or None, flags, (K1, K2, K3))
+    ("5r bf16 clean", "train_clean_classifier", "smoke_bf", _CIFAR_BF16, (0, 0, 0)),
+    ("5r bf16 generator", "train_generator", "smoke_bf_atk", _CIFAR_BF16 + ["--load_checkpoint_clean", "smoke_bf"],
+     (2 * 2 + 1, 2, 0)),
+    ("5r bf16 generator K3", "train_generator", "smoke_bf_k3",
+     _CIFAR_BF16 + ["--load_checkpoint_clean", "smoke_bf"] + _K3, (0, 0, 2 * 3 + 1)),
+    ("5r bf16 victim", "train_victim", "smoke_bf_vic", _CIFAR_BF16 + ["--load_checkpoint", "smoke_bf_atk_clean"],
+     (2 + 1, 0, 0)),
+    ("5r bf16 eval", "eval", None,
+     _CIFAR_BF16 + ["--load_checkpoint_clean", "smoke_bf_vic_clean", "--load_checkpoint", "smoke_bf_atk_clean"],
+     (1, 0, 0)),
+    ("5s bf16 inputaware", "train_generator_inputaware", "smoke_bf_ia",
+     _CIFAR_BF16 + ["--load_checkpoint_clean", "smoke_bf"], (2 * 3 + 2, 2 * 2, 0)),
+    ("5s bf16 multilabel", "train_generator_multilabel", "smoke_bf_ml",
+     _CIFAR_BF16 + ["--load_checkpoint_clean", "smoke_bf"], (2 * 2 + 10, 2, 0)),
+    ("5t bf16 imagenet10 generator", "train_generator", "smoke_bf_in_atk",
+     _IMAGENET + _BF16 + ["--load_checkpoint_clean", "smoke_in"], (2 * 2 + 1, 2, 0)),
+    ("5t float32 imagenet10 victim of the bf16 generator", "train_victim", "smoke_bf_in_vic",
+     _IMAGENET + ["--load_checkpoint", "smoke_bf_in_atk_clean"], (2 + 1, 0, 0)),
+)
+
+
+def _float32_state(payload: dict, path: str) -> None:
+    """The models a checkpoint holds keep float32 parameters and statistics
+    in either compute dtype."""
+    import torch
+
+    for key, sd in payload.items():
+        if key.startswith("net") or key == "clean_model":
+            bad = {k: t.dtype for k, t in sd.items() if t.is_floating_point() and t.dtype != torch.float32}
+            if bad:
+                raise SystemExit(f"{path}: {key} holds tensors that are not float32: {bad}")
+
+
+def run_phases(workdir, phases) -> dict:
+    """Phases 5l-5q (``LARGE_PHASES``) or 5r-5t (``BF16_PHASES``): each
+    entry point with the launch counts set to 0 just before it, held to its
+    predicted counts just after; its checkpoint finite, with float32 models,
+    its metrics percentages; a generator on the committed detector of its
+    dataset where the repo holds one.  The save gates are open
+    (:func:`_save_gates_open`).  Returns each phase's counts."""
     with _save_gates_open():
-        return _run_large_phases(workdir)
+        return _run_phases(workdir, phases)
 
 
-def _run_large_phases(workdir) -> dict:
+def _run_phases(workdir, phases) -> dict:
     import importlib
 
     from combat_tpu_torch.ops import trigger_kernels as tk
 
     base = ["--device", "cuda", "--synthetic_data", "--n_iters", "1", "--checkpoints", workdir]
     counts = {}
-    for phase, entry, prefix, flags, predicted in LARGE_PHASES:
+    for phase, entry, prefix, flags, predicted in phases:
         t0 = time.perf_counter()
         main_fn = importlib.import_module(f"combat_tpu_torch.cli.{entry}").main
         tk.reset_launch_counts()
@@ -1009,9 +1171,11 @@ def _run_large_phases(workdir) -> dict:
         if prefix:
             dataset = flags[flags.index("--dataset") + 1]
             name = prefix if entry == "train_clean_classifier" else f"{prefix}_clean"
-            payload = check_checkpoint(f"{workdir}/{name}/{dataset}/{dataset}_{name}.pt")
-            if entry == "train_generator" and dataset == "celeba" and payload["F_detector_loaded"] is not True:
-                raise SystemExit(f"phase {phase} ran without the committed celeba frequency detector")
+            path = f"{workdir}/{name}/{dataset}/{dataset}_{name}.pt"
+            payload = check_checkpoint(path)
+            _float32_state(payload, path)
+            if entry == "train_generator" and dataset != "imagenet10" and payload["F_detector_loaded"] is not True:
+                raise SystemExit(f"phase {phase} ran without the committed {dataset} frequency detector")
         if counts[phase] != dict(zip(KERNEL_NAMES, predicted)):
             raise SystemExit(f"phase {phase} launched {counts[phase]}, predicted {dict(zip(KERNEL_NAMES, predicted))}")
         print(f"  {phase}: {values}", flush=True)
@@ -1133,7 +1297,10 @@ def main(argv=None) -> int:
         variant_launches = run_variant_phases(common, workdir)
 
         # 5l-5q. celeba and imagenet10 (the tiled kernels), each with its own counts
-        large_launches = run_large_phases(workdir)
+        large_launches = run_phases(workdir, LARGE_PHASES)
+
+        # 5r-5t. --compute_dtype bfloat16, each with its own counts
+        bf16_launches = run_phases(workdir, BF16_PHASES)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if any(aten_launches.values()):
@@ -1154,8 +1321,9 @@ def main(argv=None) -> int:
             raise SystemExit(f"phase {ph} launched {per_phase[ph]}: expected {used} only")
     print(f"  launches in phases 5f-5k (each as predicted): {json.dumps(variant_launches)}", flush=True)
     print(f"  launches in phases 5l-5q (each as predicted): {json.dumps(large_launches)}", flush=True)
+    print(f"  launches in phases 5r-5t (bfloat16, each as predicted): {json.dumps(bf16_launches)}", flush=True)
     launches = {k: n + sum(per_phase[ph][k] for ph in expect)
-                + sum(c[k] for c in (*variant_launches.values(), *large_launches.values()))
+                + sum(c[k] for c in (*variant_launches.values(), *large_launches.values(), *bf16_launches.values()))
                 for k, n in launches.items()}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
@@ -1166,6 +1334,7 @@ def main(argv=None) -> int:
     step_agreement()
     variant_step_agreement()
     large_step_agreement()
+    bf16_step_agreement()
     _phase("6 card vs CPU step", t0)
 
     # 7. the steady-state step

@@ -85,9 +85,11 @@ def warp_flow(flow: torch.Tensor, height: int, width: int) -> torch.Tensor:
 
 def warp_grid(flow_up: torch.Tensor, grid_rescale: float, clamp_grid: bool = True) -> torch.Tensor:
     """``identity * (1 - grid_rescale) + flow_up * grid_rescale``, clamped to
-    [-1, 1]: the sampling grid of the warp."""
+    [-1, 1]: the sampling grid of the warp.  The identity is float32 whatever
+    the flow's dtype, and promotion gives the sum's, as in the JAX package:
+    a bfloat16 flow does not round the grid to bfloat16."""
     h, w = flow_up.shape[1], flow_up.shape[2]
-    grid = identity_grid(h, w, flow_up.dtype, flow_up.device)[None] * (1.0 - grid_rescale) + flow_up * grid_rescale
+    grid = identity_grid(h, w, device=flow_up.device)[None] * (1.0 - grid_rescale) + flow_up * grid_rescale
     return torch.clamp(grid, -1.0, 1.0) if clamp_grid else grid
 
 

@@ -12,6 +12,7 @@ import torch
 
 from ..config import Config
 from ..data import get_dataset
+from ..models import parse_compute_dtype
 
 BANNER = "combat-tpu-torch"
 _LATER = "is later work of the port"
@@ -20,10 +21,13 @@ _LATER = "is later work of the port"
 def setup_device(cfg: Config) -> torch.device:
     """The device a run uses: ``cuda:0`` for ``--device cuda`` (the default),
     the CPU only for ``--device cpu``.  No fallback: a missing card is an
-    error.  Float32 runs keep TF32 off, so convolutions and matmuls are
-    float32 as in the JAX package."""
-    if cfg.compute_dtype not in ("float32", "f32", ""):
-        raise NotImplementedError(f"--compute_dtype {cfg.compute_dtype} {_LATER} (bf16 autocast)")
+    error.  TF32 stays off, so what runs in float32 (every op of a float32
+    run; the trigger, the DCT features, the augmentation's resample and the
+    norms of a ``--compute_dtype bfloat16`` or ``float16`` run) is float32
+    as in the JAX package.  The low-precision products reduce in float32, as
+    the JAX recipe's do: cuBLAS may otherwise reduce them in their own dtype.
+    The models read the dtype from ``cfg`` (``models/registry.py``)."""
+    dtype = parse_compute_dtype(cfg.compute_dtype)  # raises on an unknown name
     if cfg.multihost or cfg.n_devices > 1:
         raise NotImplementedError(f"multi-device training {_LATER} (DDP over NCCL)")
     if cfg.profile_dir:
@@ -35,13 +39,16 @@ def setup_device(cfg: Config) -> torch.device:
         device = torch.device("cuda", device.index or 0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        if dtype is not None:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
         name = torch.cuda.get_device_name(device)
     elif device.type == "cpu":
         name = "cpu"
     else:
         raise ValueError(f"--device must be cuda or cpu, got {cfg.device!r}")
     torch.autograd.set_detect_anomaly(cfg.debug_nans)
-    print(f"[{BANNER}] device: {device} ({name})")
+    print(f"[{BANNER}] device: {device} ({name}), compute dtype: {dtype or torch.float32}")
     return device
 
 

@@ -112,7 +112,10 @@ class Config:
     coordinator_address: str = ""
     process_id: int = -1
     num_processes: int = -1
-    compute_dtype: str = "float32"  # bf16 raises (later work)
+    # float32 (or f32, ""), bfloat16 or float16: the convolutions and linears
+    # compute in it, parameters, norms, losses and the trigger stay float32
+    # (models/layers.py); any other name raises
+    compute_dtype: str = "float32"
     # "full" computes the reference's metric-only forwards every batch;
     # "loss_only" skips them.  The training trajectory is identical: none of
     # them feed a gradient and every random draw is made either way.
@@ -187,6 +190,10 @@ def build_parser(defaults: Optional[Config] = None) -> argparse.ArgumentParser:
             p.add_argument(name, type=_int_list, default=default)
         elif f.name == "sigma":
             p.add_argument(name, type=_float_pair, default=default)
+        elif f.name == "compute_dtype":
+            p.add_argument(name, type=str, default=default, help="float32 (or f32), bfloat16 or float16: the dtype "
+                           "the convolutions and linears compute in; parameters, BatchNorm, the losses and the "
+                           "trigger stay float32")
         elif isinstance(default, int):
             p.add_argument(name, type=int, default=default)
         elif isinstance(default, float):

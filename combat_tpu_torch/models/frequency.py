@@ -6,7 +6,8 @@ triplets (the activation comes before the BatchNorm), a 2x2 max pool and
 dropout after each pair, a linear head.  The input is the 2-D DCT of the
 uint8 image (``ops.dct.detector_features``).  The head flattens the NCHW map
 in PyTorch's (C, H, W) order; ``checkpoint/convert.py`` permutes the JAX
-package's (H, W, C)-ordered kernel to match.
+package's (H, W, C)-ordered kernel to match.  In a ``--compute_dtype``
+run the DCT input stays float32 (``layers.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, Conv2d, Linear
 
 
 class FrequencyModel(nn.Module):
@@ -22,12 +23,12 @@ class FrequencyModel(nn.Module):
         super().__init__()
         cin = in_channels
         for i, planes in enumerate((32, 32, 64, 64, 128, 128)):
-            setattr(self, f"conv{i}", nn.Conv2d(cin, planes, 3, 1, 1))
+            setattr(self, f"conv{i}", Conv2d(cin, planes, 3, 1, 1))
             setattr(self, f"bn{i}", BatchNorm2d(planes))
             cin = planes
         self.dropout = nn.Dropout(dropout)
         side = input_size // 8
-        self.linear = nn.Linear(128 * side * side, num_classes)
+        self.linear = Linear(128 * side * side, num_classes)
 
     def forward(self, x):
         for i in range(6):

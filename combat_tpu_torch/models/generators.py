@@ -16,7 +16,9 @@ Reference ``networks/models.py``:
   * :class:`FixedTriggerGenerator` (``:620-627``): a learnable constant.
 
 The flow field keeps the reference's NCHW (B, 2, s, s); the JAX package
-permutes it to (B, s, s, 2).
+permutes it to (B, s, s, 2).  In a ``--compute_dtype`` run (``layers.py``)
+the convolutions and the flow head compute in that dtype, and the
+activations, InstanceNorm's output and the upsampling stay in it.
 """
 
 from __future__ import annotations
@@ -26,11 +28,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.image import upsample2x_bilinear
-from .layers import instance_norm
+from .layers import Conv2d, Linear, instance_norm
 
 
-def _conv(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride, 1, bias=True)
+def _conv(cin: int, cout: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride, 1, bias=True)
 
 
 def _act(x):
@@ -39,7 +41,8 @@ def _act(x):
 
 class UnetEncoder(nn.Module):
     """``cond_channels`` > 0: a (B, cond_channels, H/2, W/2) map joins the
-    conv0_0 features before conv0_1 (the class-conditional UNet)."""
+    conv0_0 features, in their dtype, before conv0_1 (the class-conditional
+    UNet)."""
 
     def __init__(self, in_channels: int = 3, nf: int = 64, cond_channels: int = 0):
         super().__init__()
@@ -119,8 +122,8 @@ class _FlowHead(nn.Module):
     def __init__(self, s: int, nf: int):
         super().__init__()
         self.s = s
-        self.fc1 = nn.Linear(nf * 8, nf)
-        self.fc2 = nn.Linear(nf, s * s * 2)
+        self.fc1 = Linear(nf * 8, nf)
+        self.fc2 = Linear(nf, s * s * 2)
 
     def forward(self, f3):
         f = self.fc2(_act(self.fc1(f3.mean(dim=(2, 3)))))
@@ -165,7 +168,7 @@ class CUnetGenerator(nn.Module):
 
     def forward(self, x, y):
         h, w = (x.shape[-2] + 1) // 2, (x.shape[-1] + 1) // 2  # conv0_0's stride-2 output
-        y_map = F.one_hot(y.long(), self.num_classes).to(x.dtype)[:, :, None, None]
+        y_map = F.one_hot(y.long(), self.num_classes)[:, :, None, None]  # the encoder casts it to f0's dtype
         return self.dec(*self.enc(x, y_map.expand(-1, -1, h, w)))
 
 

@@ -12,6 +12,9 @@ Defense hooks, as in the JAX package:
   * ``capture_features`` returns the per-stage activations and
     ``feature_perturb`` adds a tensor to a stage output (Grad-CAM);
   * ``act`` replaces the ReLU (Guided Backprop passes ``guided_relu``).
+
+In a ``--compute_dtype`` run (``layers.py``), as in the JAX package, a
+block's residual sum stays in the convolutions' dtype.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, Conv2d, Linear
 
 
 class PreActBlock(nn.Module):
@@ -32,11 +35,11 @@ class PreActBlock(nn.Module):
         super().__init__()
         self.act = act
         self.bn1 = BatchNorm2d(in_planes)
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_planes, planes, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         if stride != 1 or in_planes != planes:
-            self.shortcut = nn.Sequential(nn.Conv2d(in_planes, planes, 1, stride, bias=False))
+            self.shortcut = nn.Sequential(Conv2d(in_planes, planes, 1, stride, bias=False))
 
     def forward(self, x):
         out = self.act(self.bn1(x))
@@ -56,7 +59,7 @@ class PreActResNet(nn.Module):
         act: Callable = F.relu,
     ):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, 64, 3, 1, 1, bias=False)
+        self.conv1 = Conv2d(in_channels, 64, 3, 1, 1, bias=False)
         in_planes = 64
         for stage, (planes, stride) in enumerate(zip((64, 128, 256, 512), (1, 2, 2, 2)), start=1):
             blocks = []
@@ -68,7 +71,7 @@ class PreActResNet(nn.Module):
         for _ in range(3):  # layers 2-4 halve the map (3x3, stride 2, padding 1)
             side = (side + 1) // 2
         side //= 4  # average pool of 4, no padding
-        self.linear = nn.Linear(512 * side * side, num_classes)
+        self.linear = Linear(512 * side * side, num_classes)
 
     def forward(
         self,

@@ -13,6 +13,9 @@ Defense hooks, as in the JAX package and the port's PreActResNet:
 ``channel_mask`` multiplies the layer4 output channels (fine-pruning);
 ``capture_features`` returns the per-stage activations and
 ``feature_perturb`` adds a tensor to a stage output (Grad-CAM).
+
+In a ``--compute_dtype`` run (``layers.py``), as in the JAX package, a
+block's residual sum is of BatchNorm outputs, so float32.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, Conv2d, Linear
 
 
 def _shortcut(in_planes: int, out_planes: int, stride: int) -> Optional[nn.Sequential]:
@@ -31,7 +34,7 @@ def _shortcut(in_planes: int, out_planes: int, stride: int) -> Optional[nn.Seque
     the stride or the width, else None (identity)."""
     if stride == 1 and in_planes == out_planes:
         return None
-    return nn.Sequential(nn.Conv2d(in_planes, out_planes, 1, stride, bias=False), BatchNorm2d(out_planes))
+    return nn.Sequential(Conv2d(in_planes, out_planes, 1, stride, bias=False), BatchNorm2d(out_planes))
 
 
 class BasicBlock(nn.Module):
@@ -39,9 +42,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_planes, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
         shortcut = _shortcut(in_planes, planes, stride)
         if shortcut is not None:
@@ -58,11 +61,11 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
+        self.conv1 = Conv2d(in_planes, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, self.expansion * planes, 1, bias=False)
+        self.conv3 = Conv2d(planes, self.expansion * planes, 1, bias=False)
         self.bn3 = BatchNorm2d(self.expansion * planes)
         shortcut = _shortcut(in_planes, self.expansion * planes, stride)
         if shortcut is not None:
@@ -86,7 +89,7 @@ class ResNet(nn.Module):
     ):
         super().__init__()
         block = Bottleneck if bottleneck else BasicBlock
-        self.conv1 = nn.Conv2d(in_channels, 64, 3, 1, 1, bias=False)
+        self.conv1 = Conv2d(in_channels, 64, 3, 1, 1, bias=False)
         self.bn1 = BatchNorm2d(64)
         in_planes = 64
         for stage, (planes, stride) in enumerate(zip((64, 128, 256, 512), (1, 2, 2, 2)), start=1):
@@ -99,7 +102,7 @@ class ResNet(nn.Module):
         for _ in range(3):  # layers 2-4 halve the map (3x3, stride 2, padding 1)
             side = (side + 1) // 2
         side //= 4  # average pool of 4, no padding
-        self.linear = nn.Linear(in_planes * side * side, num_classes)
+        self.linear = Linear(in_planes * side * side, num_classes)
 
     def forward(
         self,

@@ -10,7 +10,8 @@ summation order than cuBLAS, on values of order 1 to 10.  K1/K2 are held at
 32 and 64 px, 3 and 5 taps, a small and a large sigma (B^T != B), and a
 full and a ragged plane count; K3 at 28-64 px and the cutoffs c = 1,
 0.65 H and H.  Above 64 px the tiled kernels are held the same way at 65,
-100 and 224 px (imagenet10: bs 32, 96 planes), and one alternated step at
+100 and 224 px (imagenet10: bs 32, 96 planes) and at 257 and 300 px, where
+the products read the projector's depth in windows, and one alternated step at
 96 px runs them inside the step, card against CPU.  Two checks of the tiled
 design: K3 at 224 px within 2e-5 of its plain version, which three TF32
 passes meet and one (~1e-3) does not; and K1's one-pass blur against the
@@ -158,12 +159,14 @@ def test_aten_route_runs_any_size_without_kernels(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [3, 5])
 @pytest.mark.parametrize("h,planes,ratio", [(65, 383, RATIO), (100, 383, RATIO), (224, 96, RATIO), (100, 7, 0.01),
-                                            (72, 7, 1.0)], ids=["H65", "H100", "H224", "H100-c0", "H72-c=H"])
+                                            (72, 7, 1.0), (257, 96, RATIO), (300, 95, RATIO)],
+                         ids=["H65", "H100", "H224", "H100-c0", "H72-c=H", "H257", "H300"])
 def test_tiled_fused_trigger_kernels_match_plain(dev, h, planes, ratio, k):
     """K1/K2 above 64 px (the tiled chain: products with P, band passes)
     against the plain versions: H not a multiple of the 64-wide tile (65,
-    100), imagenet10's 224 at bs 32, the cutoff edges c = 0 and c = H; one
-    launch counted a call."""
+    100), imagenet10's 224 at bs 32, the cutoff edges c = 0 and c = H, and
+    H above 224, where the products read P's depth in windows of 224 (257,
+    300); one launch counted a call."""
     x, noise, g = _planes(dev, planes, h)
     taps = gaussian_kernel_1d(k, 0.9, device=dev)
     B = blur_matrix(taps, h)
@@ -183,10 +186,12 @@ def test_tiled_fused_trigger_kernels_match_plain(dev, h, planes, ratio, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,planes,ratio", [(65, 383, RATIO), (100, 383, 1.5 / 100), (224, 96, RATIO),
-                                            (224, 96, 1.0)], ids=["H65", "H100-c1", "H224", "H224-c=H"])
+                                            (224, 96, 1.0), (257, 96, RATIO), (300, 95, 1.0)],
+                         ids=["H65", "H100-c1", "H224", "H224-c=H", "H257", "H300-c=H"])
 def test_tiled_low_freq_kernel_and_autograd_match_plain(dev, h, planes, ratio):
     """K3 above 64 px, forward and through autograd (the tiled K3 on the
-    cotangent), against the plain dense chain; two launches."""
+    cotangent), against the plain dense chain; two launches.  Above 224 px
+    the products read P's depth in windows (257, 300)."""
     from combat_tpu_torch.ops.dct import low_freq
 
     x, _, g = _planes(dev, planes, h)

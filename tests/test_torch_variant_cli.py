@@ -12,6 +12,7 @@ JAX specs; each port spec must match its JAX spec.
 
 import dataclasses
 import importlib
+import shutil
 
 import pytest
 import torch
@@ -40,7 +41,8 @@ VICTIM_KEYS = {"netC", "schedulerC", "optimizerC", "netG", "best_clean_acc", "be
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every entry point once, in order, in one subprocess with JAX blocked;
-    returns the checkpoint root and the output."""
+    yields the checkpoint root and the output, and deletes the checkpoints
+    (1.4 GB) after the module's tests."""
     ck = tmp_path_factory.mktemp("variant_cli") / "ck"
     common = ["--device", "cpu", "--synthetic_data", "--synthetic_size", "20", "--bs", "8", "--n_iters", "1",
               "--checkpoints", str(ck)]
@@ -57,7 +59,8 @@ def runs(tmp_path_factory):
                  f".main(a + ['--saving_prefix', {prefix!r}] + {extra!r}))\n")
     proc = _run(code, *common, timeout=900)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return ck, proc.stdout
+    yield ck, proc.stdout
+    shutil.rmtree(ck)
 
 
 def _payload(ck, entry):

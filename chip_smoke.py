@@ -59,24 +59,38 @@ Phases, each printing one line with its seconds:
      imagenet10 generator at 224 px (the tiled K1/K2) on 5m's float32
      clean model and a float32 victim of it; every checkpoint holds float32
      parameters and statistics;
+  5u-5w. the rest of the model registry, each phase held to the counts in
+     ``ZOO_PHASES`` (cifar10 or gtsrb, bs 128, 256 images: 2 steps, then
+     one eval batch): 5u ``--model vgg16``, ``densenet121`` and
+     ``simplevitsmall8`` through the four stages, and every other new name
+     through a clean classifier and a generator; 5v ``--F_model
+     original_dropout``, ``original_dropout_ensemble`` and ``densenet121``
+     through a generator and eval, each with a random detector recorded as
+     such (no ``.pt`` of theirs is in the repo), and the frozen ensemble's
+     logits drawn anew a call on the card; 5w gtsrb (43 classes) through
+     the four stages;
   6. one alternated step and one victim step at full width on the card
      against the same step on the CPU, from the same weights and draws, one
      input-aware and one multilabel step (bs 32), and one alternated step
-     at 96 px (ResNet18, bs 4) where the tiled K1/K2 run inside the step;
+     at 96 px (ResNet18, bs 4) where the tiled K1/K2 run inside the step,
+     and one alternated step with DenseNet121 as C and the clean model and
+     the dropout-ensemble detector, its masks drawn once and given to both;
      then the alternated and victim steps in bfloat16 on the card and on
      the CPU on six seeds, held by the gap criterion of
      ``combat_tpu_torch/utils/gap.py`` with the card's float32 step as the
      yardstick;
   7. the steady-state alternated step at full width (bs 128), timed on the
-     host clock around synchronised runs of 10 steps, on the three trigger
+     host clock around synchronised runs of 5 steps after 2, on the three trigger
      routes (K1/K2, K3, ATen) and in both metric modes, the victim step
      on the K1 and ATen routes, and each variant's step on the K1/K2 route;
-     then (5 steps each) the imagenet10 alternated step at 224 px, bs 32 on
-     the K1/K2 and ATen routes with the K1/K2 step's peak device memory,
-     the imagenet10 victim step, and the celeba alternated step (bs 128);
-     all of it in float32, then in bfloat16, each row named by its dtype.
+     then (3 steps each) the alternated and victim steps with VGG16,
+     MobileNetV2, DenseNet121, ViT and ViT-small as C, the imagenet10
+     alternated step at 224 px, bs 32 on the K1/K2 and ATen routes with the
+     K1/K2 step's peak device memory, the imagenet10 victim step, and the
+     celeba alternated step (bs 128); all of it in float32, then in
+     bfloat16, each row named by its dtype.
 Then one JSON line of the kernels (launches on the main path, phases 3-5,
-5c-5e, 5f-5k, 5l-5q and 5r-5t, errors, times, bounds) and, last,
+5c-5e, 5f-5k, 5l-5q, 5r-5t and 5u-5w, errors, times, bounds) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
@@ -675,6 +689,44 @@ def large_step_agreement() -> None:
            ((c_gpu, c_cpu), (g_gpu, g_cpu)))
 
 
+def zoo_step_agreement() -> None:
+    """Phase 6, the rest of the registry: one alternated step at full width
+    (bs 16) with DenseNet121 as C and the clean model and the
+    dropout-ensemble detector, on the card and on the CPU, from the same
+    weights, draws and detector masks.  (MobileNetV2's step is too
+    ill-conditioned at bs 16 for phase 6's 1e-4: on the CPU alone an input
+    noise of 1e-6 moves its stem conv by 3.2e-4; DenseNet121's by 6.1e-5,
+    PreActResNet18's by 3.2e-5; ``scripts/step_conditioning.py``.)"""
+    import torch
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.train import TrainState, draw_alternated, freeze, make_alternated_train_step, multistep_lr
+
+    cfg = apply_dataset_preset(Config(model="densenet121", F_model="original_dropout_ensemble"))
+    torch.manual_seed(11)
+    weights = [get_classifier(cfg), get_generator(cfg), get_classifier(cfg), get_frequency_detector(cfg)]
+    gen = torch.Generator().manual_seed(12)
+    x = torch.rand((16, 3, 32, 32), generator=gen) * 2 - 1
+    y = torch.arange(16) % 4
+    draws = draw_alternated(cfg, 16, gen, "cpu", freeze(copy.deepcopy(weights[3])))
+    if draws.drop_F is None or len(draws.drop_F) != 9:
+        raise SystemExit("the ensemble detector's masks were not drawn")
+    results = {}
+    for dev in ("cuda", "cpu"):
+        C, G, cm, nf = (copy.deepcopy(m).to(dev) for m in weights)
+        sched = multistep_lr(0.01, (100,), 0.1, 10)
+        stateC, stateG = TrainState(C, sched), TrainState(G, sched)
+        m = make_alternated_train_step(cfg, C, G)(stateC, stateG, freeze(cm), freeze(nf), (x.to(dev), y.to(dev)),
+                                                  draws=_to(draws, dev))
+        results[dev] = ({k: float(v) for k, v in m.items()}, C.state_dict(), G.state_dict())
+    (m_gpu, c_gpu, g_gpu), (m_cpu, c_cpu, g_cpu) = results["cuda"], results["cpu"]
+    if m_gpu["F_correct"] != m_cpu["F_correct"]:
+        raise SystemExit(f"F_correct of the ensemble detector: card {m_gpu['F_correct']}, CPU {m_cpu['F_correct']}")
+    _agree("DenseNet121 alternated step with the dropout-ensemble detector", m_gpu, m_cpu,
+           ("loss_ce", "loss_l2", "clean_model_loss", "loss_grad_l2"), ((c_gpu, c_cpu), (g_gpu, g_cpu)))
+
+
 def variant_step_agreement() -> None:
     """Phase 6, the variants: one full-width input-aware step and one
     multilabel step (bs 32) on the card (K1/K2) and on the CPU (plain
@@ -804,7 +856,7 @@ def bf16_step_agreement() -> None:
 ROUTES = {"pallas_trigger": (True, False), "lowfreq_kernel": (False, True), "aten": (False, False)}
 
 
-def _ms_per_step(run, warm: int = 3, iters: int = 10) -> float:
+def _ms_per_step(run, warm: int = 2, iters: int = 5) -> float:
     """Host-clock ms per call of ``run`` over ``iters`` synchronised calls,
     after ``warm`` warm-up calls (cuDNN picks its algorithms there).  A
     step's metrics, when ``run`` returns them, must hold a finite loss."""
@@ -897,8 +949,39 @@ def _step_times(dtype: str) -> dict:
 
     record("victim parts/C forward, backward, SGD", _ms_per_step(c_update))
     variant_step_times(base, x, y, gen, sched, record)
+    zoo_step_times(base, x, y, poisoned, gen, sched, record)
     out.update(large_step_times(base, sched, record))
     return out
+
+
+def zoo_step_times(base, x, y, poisoned, gen, sched, record) -> None:
+    """Phase 7, the rest of the registry: the alternated step (full
+    metrics, K1/K2 route) and the victim step (K1) at bs 128 with each of
+    ``ZOO_TIMED`` as C (and as the clean model), in ``base``'s compute
+    dtype; 2 warm-up and 3 timed steps each."""
+    import torch
+
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.train import TrainState, freeze, make_alternated_train_step, make_victim_train_step
+
+    dev = x.device
+    for name in ZOO_TIMED:
+        cfg = base.replace(model=name)
+        torch.manual_seed(4)
+        C_, G = get_classifier(cfg).to(dev), get_generator(cfg).to(dev)
+        cm, nf = freeze(get_classifier(cfg).to(dev)), freeze(get_frequency_detector(cfg).to(dev))
+        stateC, stateG = TrainState(C_, sched), TrainState(G, sched)
+        step = make_alternated_train_step(cfg, C_, G)
+        record(f"model/{name}", _ms_per_step(lambda: step(stateC, stateG, cm, nf, (x, y), gen), iters=3))
+        vstep = make_victim_train_step(cfg, C_, freeze(G))
+        record(f"model/{name} victim", _ms_per_step(lambda: vstep(stateC, (x, y, poisoned), gen), iters=3))
+        del C_, G, cm, nf, stateC, stateG, step, vstep
+
+
+# Phase 7's classifiers beyond the ResNets (vit at 32 px: 64 tokens; it is
+# not driven at 224 px, where its 3136 tokens would need ~10 GB of float32
+# attention matrices a layer at bs 32)
+ZOO_TIMED = ("vgg16", "mobilenetv2", "densenet121", "vit", "vitsmall")
 
 
 def large_step_times(base, sched, record) -> dict:
@@ -906,7 +989,7 @@ def large_step_times(base, sched, record) -> dict:
     imagenet10 alternated step (224 px, bs 32) on the K1/K2 route (the tiled
     kernels) and the ATen route, with the peak device memory of the K1/K2
     step; the imagenet10 victim step on K1; the celeba alternated step (64
-    px, bs 128) on K1/K2.  224 px steps take ~1 s, so 2 warm-up and 5 timed
+    px, bs 128) on K1/K2.  224 px steps take ~1 s, so 2 warm-up and 3 timed
     steps each."""
     import torch
 
@@ -933,7 +1016,7 @@ def large_step_times(base, sched, record) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             resident = torch.cuda.memory_allocated()
-            ms = _ms_per_step(lambda: step(stateC, stateG, cm, nf, (x, y), gen), warm=2, iters=5)
+            ms = _ms_per_step(lambda: step(stateC, stateG, cm, nf, (x, y), gen), iters=3)
             record(f"{dataset}/{route}", ms, n)
             if dataset == "imagenet10" and route == "pallas_trigger":
                 memory = {"max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -950,7 +1033,7 @@ def large_step_times(base, sched, record) -> dict:
             vstep = make_victim_train_step(cfg, C_, G)
             poisoned = torch.arange(n, device=dev) % 10 == 0
             record("imagenet10/victim pallas_trigger", _ms_per_step(lambda: vstep(stateC, (x, y, poisoned), gen),
-                                                                   warm=2, iters=5), n)
+                                                                   iters=3), n)
             del C_, G, stateC, vstep
     return {f"{base.compute_dtype}/imagenet10/memory": memory}
 
@@ -991,10 +1074,13 @@ def _no_grad(fn, *args, **kw):
 
 
 def _to(obj, dev):
+    """Draws (a tensor, None, a list of masks, or a NamedTuple of them) on ``dev``."""
     import torch
 
-    if isinstance(obj, torch.Tensor):
-        return obj.to(dev)
+    if obj is None or isinstance(obj, torch.Tensor):
+        return obj if obj is None else obj.to(dev)
+    if isinstance(obj, list):
+        return [_to(v, dev) for v in obj]
     return type(obj)(*(_to(v, dev) for v in obj))
 
 
@@ -1129,6 +1215,82 @@ BF16_PHASES = (  # (phase, entry point, saving prefix or None, flags, (K1, K2, K
 )
 
 
+# Phases 5u-5w: the rest of the model registry through the entry points.  A
+# new --model or --F_model does not touch the trigger route, so each stage
+# launches what its cifar10 counterpart in phases 3-5e launches at 256 images
+# (2 steps, then one eval batch of 51 rows): a clean classifier nothing, a
+# generator K1 2 x 2 + 1 and K2 2, a victim K1 2 + 1, the final eval K1
+# once.  The detectors of 5v have no .pt in the repo: each runs random, as
+# the JAX package would, and its checkpoint records F_detector_loaded false.
+_CIFAR = ["--dataset", "cifar10", "--bs", "128", "--synthetic_size", "256"]
+_GTSRB = ["--dataset", "gtsrb", "--bs", "128", "--synthetic_size", "256"]
+_GENERATOR, _VICTIM = (2 * 2 + 1, 2, 0), (2 + 1, 0, 0)
+
+
+def _four_stages(phase, name, data, flags=()):
+    """clean -> generator -> victim -> eval with ``flags`` on every stage."""
+    flags, p = list(data) + list(flags), f"smoke_{name}"
+    return (
+        (f"{phase} {name} clean", "train_clean_classifier", p, flags, (0, 0, 0)),
+        (f"{phase} {name} generator", "train_generator", f"{p}_atk", flags + ["--load_checkpoint_clean", p],
+         _GENERATOR),
+        (f"{phase} {name} victim", "train_victim", f"{p}_vic", flags + ["--load_checkpoint", f"{p}_atk_clean"],
+         _VICTIM),
+        (f"{phase} {name} eval", "eval", None,
+         flags + ["--load_checkpoint_clean", f"{p}_vic_clean", "--load_checkpoint", f"{p}_atk_clean"], (1, 0, 0)),
+    )
+
+
+def _generator_only(name):
+    flags, p = _CIFAR + ["--model", name], f"smoke_{name}"
+    return (
+        (f"5u {name} clean", "train_clean_classifier", p, flags, (0, 0, 0)),
+        (f"5u {name} generator", "train_generator", f"{p}_atk", flags + ["--load_checkpoint_clean", p], _GENERATOR),
+    )
+
+
+def _detector_phases(F_model):
+    flags, p = _CIFAR + ["--F_model", F_model], f"smoke_F_{F_model}"
+    return (
+        (f"5v {F_model} generator", "train_generator", p, flags + _CLEAN, _GENERATOR),
+        (f"5v {F_model} eval", "eval", None,
+         flags + ["--load_checkpoint_clean", "smoke_vic_clean", "--load_checkpoint", f"{p}_clean"], (1, 0, 0)),
+    )
+
+
+ZOO_PHASES = (  # (phase, entry point, saving prefix or None, flags, (K1, K2, K3))
+    *(stage for name in ("vgg16", "densenet121", "simplevitsmall8")
+      for stage in _four_stages("5u", name, _CIFAR, ["--model", name])),
+    *(stage for name in ("preactresnet10", "preactresnet34", "vgg11", "vgg13", "vgg19", "mobilenetv2", "vit",
+                         "vitsmall") for stage in _generator_only(name)),
+    *(stage for F_model in ("original_dropout", "original_dropout_ensemble", "densenet121")
+      for stage in _detector_phases(F_model)),
+    *_four_stages("5w", "gtsrb", _GTSRB),
+)
+
+
+def ensemble_stays_live() -> None:
+    """Phase 5v: the dropout-ensemble detector, frozen on the card, gives
+    other logits on each call with the same input (its dropout is live in
+    eval mode), and the same logits with the same masks."""
+    import torch
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_frequency_detector
+    from combat_tpu_torch.train import freeze
+
+    dev = torch.device("cuda", 0)
+    netF = freeze(get_frequency_detector(apply_dataset_preset(Config(F_model="original_dropout_ensemble"))).to(dev))
+    x = torch.rand((8, C, H, H), generator=torch.Generator(device=dev).manual_seed(9), device=dev) * 200 - 100
+    masks = netF.draw_masks(8, torch.Generator(device=dev).manual_seed(10), dev)
+    with torch.no_grad():
+        a, b, m1, m2 = netF(x), netF(x), netF(x, masks), netF(x, masks)
+    if torch.equal(a, b) or not torch.equal(m1, m2):
+        raise SystemExit("the frozen dropout-ensemble detector's dropout is not live on the card")
+    print(f"  5v ensemble after freeze: two calls differ by {float((a - b).abs().max()):.3e}; "
+          "the same masks give the same logits", flush=True)
+
+
 def _float32_state(payload: dict, path: str) -> None:
     """The models a checkpoint holds keep float32 parameters and statistics
     in either compute dtype."""
@@ -1142,11 +1304,12 @@ def _float32_state(payload: dict, path: str) -> None:
 
 
 def run_phases(workdir, phases) -> dict:
-    """Phases 5l-5q (``LARGE_PHASES``) or 5r-5t (``BF16_PHASES``): each
-    entry point with the launch counts set to 0 just before it, held to its
-    predicted counts just after; its checkpoint finite, with float32 models,
-    its metrics percentages; a generator on the committed detector of its
-    dataset where the repo holds one.  The save gates are open
+    """Phases 5l-5q (``LARGE_PHASES``), 5r-5t (``BF16_PHASES``) or 5u-5w
+    (``ZOO_PHASES``): each entry point with the launch counts set to 0 just
+    before it, held to its predicted counts just after; its checkpoint
+    finite, with float32 models, its metrics percentages; a generator on
+    the committed detector of its dataset where the repo holds one, and
+    recorded as running without one elsewhere.  The save gates are open
     (:func:`_save_gates_open`).  Returns each phase's counts."""
     with _save_gates_open():
         return _run_phases(workdir, phases)
@@ -1174,8 +1337,11 @@ def _run_phases(workdir, phases) -> dict:
             path = f"{workdir}/{name}/{dataset}/{dataset}_{name}.pt"
             payload = check_checkpoint(path)
             _float32_state(payload, path)
-            if entry == "train_generator" and dataset != "imagenet10" and payload["F_detector_loaded"] is not True:
-                raise SystemExit(f"phase {phase} ran without the committed {dataset} frequency detector")
+            F_model = flags[flags.index("--F_model") + 1] if "--F_model" in flags else "original"
+            committed = dataset in ("cifar10", "celeba") and F_model == "original"  # the detectors in the repo
+            if entry == "train_generator" and payload["F_detector_loaded"] is not committed:
+                raise SystemExit(f"phase {phase}: F_detector_loaded is {payload['F_detector_loaded']}, "
+                                 f"expected {committed} for {dataset} and --F_model {F_model}")
         if counts[phase] != dict(zip(KERNEL_NAMES, predicted)):
             raise SystemExit(f"phase {phase} launched {counts[phase]}, predicted {dict(zip(KERNEL_NAMES, predicted))}")
         print(f"  {phase}: {values}", flush=True)
@@ -1301,6 +1467,10 @@ def main(argv=None) -> int:
 
         # 5r-5t. --compute_dtype bfloat16, each with its own counts
         bf16_launches = run_phases(workdir, BF16_PHASES)
+
+        # 5u-5w. the rest of the model registry, each with its own counts
+        zoo_launches = run_phases(workdir, ZOO_PHASES)
+        ensemble_stays_live()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if any(aten_launches.values()):
@@ -1322,8 +1492,9 @@ def main(argv=None) -> int:
     print(f"  launches in phases 5f-5k (each as predicted): {json.dumps(variant_launches)}", flush=True)
     print(f"  launches in phases 5l-5q (each as predicted): {json.dumps(large_launches)}", flush=True)
     print(f"  launches in phases 5r-5t (bfloat16, each as predicted): {json.dumps(bf16_launches)}", flush=True)
-    launches = {k: n + sum(per_phase[ph][k] for ph in expect)
-                + sum(c[k] for c in (*variant_launches.values(), *large_launches.values(), *bf16_launches.values()))
+    print(f"  launches in phases 5u-5w (each as predicted): {json.dumps(zoo_launches)}", flush=True)
+    later = (*variant_launches.values(), *large_launches.values(), *bf16_launches.values(), *zoo_launches.values())
+    launches = {k: n + sum(per_phase[ph][k] for ph in expect) + sum(c[k] for c in later)
                 for k, n in launches.items()}
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
@@ -1334,6 +1505,7 @@ def main(argv=None) -> int:
     step_agreement()
     variant_step_agreement()
     large_step_agreement()
+    zoo_step_agreement()
     bf16_step_agreement()
     _phase("6 card vs CPU step", t0)
 

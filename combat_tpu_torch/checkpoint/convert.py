@@ -18,6 +18,14 @@ with ``np.asarray`` first); the output is a ``state_dict`` of CPU tensors:
     ``conv0_1`` reads ``nf + num_classes`` channels in the JAX concat order
     ``[f0, one_hot]``, which is the port's
   * the fixed trigger goes from (H, W, C) to (C, H, W)
+  * a depthwise conv's (kH, kW, 1, O) kernel becomes the grouped
+    ``weight`` (O, 1, kH, kW) by the same transpose
+  * the ViTs' LayerNorm ``scale`` is ``weight``; their parameters that are
+    no layer's (the CLS token, the learned position embedding) keep their
+    shape
+  * a JAX block named ``<stage>_<i>`` (``layer1_0``, ``dense2_3``) is the
+    port's ``<stage>.<i>``; a projection shortcut's ``shortcut_conv`` and
+    ``shortcut_bn`` are ``shortcut.0`` and ``shortcut.1``
 """
 
 from __future__ import annotations
@@ -55,49 +63,98 @@ def _dense(sd: Dict[str, torch.Tensor], prefix: str, p: Tree, channels: int = 0)
         side = int(round((w.shape[1] / channels) ** 0.5))
         w = w.reshape(w.shape[0], side, side, channels).transpose(0, 3, 1, 2).reshape(w.shape[0], -1)
     sd[f"{prefix}.weight"] = _t(w)
-    sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def _preact_resnet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
-    sd: Dict[str, torch.Tensor] = {}
-    _conv(sd, "conv1", params["conv1"])
-    for name in sorted(k for k in params if k.startswith("layer")):
-        stage, i = name[len("layer") :].split("_")
-        prefix = f"layer{stage}.{i}"
-        block, block_stats = params[name], stats[name]
-        for bn in ("bn1", "bn2"):
-            _bn(sd, f"{prefix}.{bn}", block[bn], block_stats[bn])
-        for cv in ("conv1", "conv2"):
-            _conv(sd, f"{prefix}.{cv}", block[cv])
-        if "shortcut" in block:
-            _conv(sd, f"{prefix}.shortcut.0", block["shortcut"])
-    _dense(sd, "linear", params["linear"], channels=512)
-    return sd
+def _out_channels(p: Tree) -> int:
+    return int(np.shape(p["kernel"])[-1])
+
+
+def _layers(sd: Dict[str, torch.Tensor], prefix: str, params: Tree, stats: Tree) -> None:
+    """Every conv (``conv*``, ``shortcut*``) and BatchNorm (``bn*``) directly
+    under ``params``, by name."""
+    for name, p in params.items():
+        if name.startswith("bn"):
+            _bn(sd, f"{prefix}{name}", p, stats[name])
+        elif name.startswith("conv") or name == "shortcut":
+            _conv(sd, f"{prefix}{name}" + (".0" if name == "shortcut" else ""), p)
+        elif name == "shortcut_conv":
+            _conv(sd, f"{prefix}shortcut.0", p)
+        elif name == "shortcut_bn":
+            _bn(sd, f"{prefix}shortcut.1", p, stats[name])
+
+
+def _blocks(sd: Dict[str, torch.Tensor], params: Tree, stats: Tree, stage: str) -> None:
+    """The blocks ``<stage><s>_<i>`` -> ``<stage><s>.<i>``, each by :func:`_layers`."""
+    for name in (k for k in params if k.startswith(stage) and "_" in k):
+        _layers(sd, name.replace("_", ".") + ".", params[name], stats[name])
 
 
 def _resnet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
-    """BasicBlock and Bottleneck ResNets: the JAX block's ``shortcut_conv``
-    and ``shortcut_bn`` are the port's ``shortcut.0`` and ``shortcut.1``; the
-    head reads the flattened map of layer4's last conv (512 or 2048
-    channels)."""
+    """ResNets and PreActResNets of either block; the head reads the
+    flattened map of layer4's last conv (512 or 2048 channels)."""
     sd: Dict[str, torch.Tensor] = {}
-    _conv(sd, "conv1", params["conv1"])
-    _bn(sd, "bn1", params["bn1"], stats["bn1"])
-    blocks = sorted(k for k in params if k.startswith("layer"))
-    for name in blocks:
-        stage, i = name[len("layer") :].split("_")
-        prefix = f"layer{stage}.{i}"
-        block, block_stats = params[name], stats[name]
-        for j in (1, 2, 3):
-            if f"conv{j}" in block:
-                _conv(sd, f"{prefix}.conv{j}", block[f"conv{j}"])
-                _bn(sd, f"{prefix}.bn{j}", block[f"bn{j}"], block_stats[f"bn{j}"])
-        if "shortcut_conv" in block:
-            _conv(sd, f"{prefix}.shortcut.0", block["shortcut_conv"])
-            _bn(sd, f"{prefix}.shortcut.1", block["shortcut_bn"], block_stats["shortcut_bn"])
-    last = params[max((k for k in blocks if k.startswith("layer4_")), key=lambda k: int(k.split("_")[1]))]
-    channels = np.shape(last["conv3" if "conv3" in last else "conv2"]["kernel"])[-1]
-    _dense(sd, "linear", params["linear"], channels=channels)
+    _layers(sd, "", params, stats)
+    _blocks(sd, params, stats, "layer")
+    last = params[max((k for k in params if k.startswith("layer4_")), key=lambda k: int(k.split("_")[1]))]
+    _dense(sd, "linear", params["linear"], channels=_out_channels(last["conv3" if "conv3" in last else "conv2"]))
+    return sd
+
+
+def _vgg(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _layers(sd, "", params, stats)
+    last = max((k for k in params if k.startswith("conv")), key=lambda k: int(k[len("conv") :]))
+    _dense(sd, "classifier", params["classifier"], channels=_out_channels(params[last]))
+    return sd
+
+
+def _mobilenetv2(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _layers(sd, "", params, stats)
+    for name in (k for k in params if k.startswith("block")):
+        _layers(sd, f"{name}.", params[name], stats[name])
+    _dense(sd, "linear", params["linear"], channels=_out_channels(params["conv2"]))
+    return sd
+
+
+def _densenet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _layers(sd, "", params, stats)
+    _blocks(sd, params, stats, "dense")
+    for name in (k for k in params if k.startswith("trans")):
+        _layers(sd, f"{name}.", params[name], stats[name])
+    _dense(sd, "linear", params["linear"], channels=int(np.shape(params["bn"]["scale"])[0]))
+    return sd
+
+
+def _vit(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    """SimpleViT and the timm-style ViT: every Dense, Conv and LayerNorm by
+    its path, the CLS token and position embedding as they are."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, tree: Tree) -> None:
+        for name, p in tree.items():
+            key = f"{prefix}{name}"
+            if not isinstance(p, dict):
+                sd[key] = _t(p)
+            elif "kernel" in p:
+                (_conv if np.ndim(p["kernel"]) == 4 else _dense)(sd, key, p)
+            elif "scale" in p:
+                sd[f"{key}.weight"], sd[f"{key}.bias"] = _t(p["scale"]), _t(p["bias"])
+            else:
+                walk(f"{key}.", p)
+
+    walk("", params)
+    return sd
+
+
+def _netc_mnist(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _layers(sd, "", params, stats)
+    _dense(sd, "linear6", params["linear6"], channels=_out_channels(params["conv4"]))
+    _dense(sd, "linear9", params["linear9"])
     return sd
 
 
@@ -138,15 +195,25 @@ def _fixed(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
 
 def _frequency(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
-    for i in range(6):
-        _conv(sd, f"conv{i}", params[f"conv{i}"])
-        _bn(sd, f"bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
+    _layers(sd, "", params, stats)
     _dense(sd, "linear", params["linear"], channels=128)
     return sd
 
 
+def _frequency_ensemble(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    """The ensemble's one shared ``body``."""
+    return {f"body.{k}": v for k, v in _frequency(params["body"], stats["body"]).items()}
+
+
 _CONVERTERS = {
-    "preactresnet18": _preact_resnet,
+    "preactresnet": _resnet,
+    "preactresnet18": _resnet,
+    "vgg": _vgg,
+    "mobilenetv2": _mobilenetv2,
+    "densenet": _densenet,
+    "simplevit": _vit,
+    "vit_timm": _vit,
+    "netc_mnist": _netc_mnist,
     "resnet": _resnet,
     "unet": _unet,
     "unet_bk": _unet,
@@ -155,6 +222,7 @@ _CONVERTERS = {
     "cunet": _cunet,
     "fixed": _fixed,
     "frequency": _frequency,
+    "frequency_ensemble": _frequency_ensemble,
 }
 
 

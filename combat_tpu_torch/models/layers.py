@@ -14,12 +14,20 @@ as Flax's BatchNorm promotes a bfloat16 input with its float32 scale;
 :func:`instance_norm` keeps its statistics in float32 and returns the input's
 dtype.  :func:`set_compute_dtype` sets a built model's dtype (the registry
 does, from ``cfg.compute_dtype``); it is not process state, and ``None`` is
-float32 throughout.
+float32 throughout.  A model that should stay float32 in a low-precision run
+(the ViTs, NetC_MNIST's convolutions: their Flax layers pass no ``dtype=``)
+uses ``torch.nn``'s own layers, which :func:`set_compute_dtype` leaves alone.
+
+:class:`Dropout` is Flax's ``nn.Dropout`` (inverted, ``keep / (1 - p)``) with
+its mask passed in or drawn from a ``torch.Generator``; ``always_on`` keeps it
+live under ``.eval()``, as the reference's dropout detectors do
+(``train/state.py::freeze`` calls ``.eval()``, which would switch
+``nn.Dropout`` off).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -119,3 +127,54 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``nn.InstanceNorm2d`` defaults (no affine, no running stats), with the
     statistics in float32."""
     return F.instance_norm(x.float(), eps=eps).to(x.dtype)
+
+
+def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Flax's ``nn.avg_pool(x, (w, w), (w, w))``: no padding, the map's
+    remainder dropped."""
+    return F.avg_pool2d(x, window)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with Flax's epsilon, 1e-6 (torch's default is 1e-5)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+
+
+class Dropout(nn.Module):
+    """Flax's ``nn.Dropout``: an element is kept with probability ``1 - p``
+    and scaled by ``1 / (1 - p)``.  Live in train mode, and in eval mode too
+    when ``always_on``.  ``mask`` (bool, True = kept) is the draw to use;
+    without one it is drawn from ``generator``."""
+
+    def __init__(self, p: float, always_on: bool = False):
+        super().__init__()
+        self.p = p
+        self.always_on = always_on
+
+    @property
+    def live(self) -> bool:
+        return (self.training or self.always_on) and self.p > 0.0
+
+    def draw_mask(self, shape: Sequence[int], generator: Optional[torch.Generator], device) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=generator, device=device) < 1.0 - self.p
+
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        if not self.live:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        if mask is None:
+            mask = self.draw_mask(x.shape, generator, x.device)
+        return torch.where(mask, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}, always_on={self.always_on}"
+
+
+def live_dropout(model: nn.Module) -> bool:
+    """Whether ``model``'s forward draws a dropout mask in its current mode."""
+    return any(isinstance(m, Dropout) and m.live for m in model.modules())

@@ -1,22 +1,29 @@
-"""Model factories of this slice of the port (``combat_tpu/models/registry.py``).
+"""Model factories (the port of ``combat_tpu/models/registry.py``).
 
-Ported so far: the PreActResNet18 classifier (the default of cifar10 and
-gtsrb), ResNet18 (the default of celeba and imagenet10), ``--model``
-``preactresnet18``, ``resnet18`` and ``resnet34`` for any dataset, every
-trigger generator and the ``original`` frequency detector.  Any other name
-raises ``NotImplementedError`` naming the later slice that ports it.
+Every ``--model`` name of the JAX registry's ``CLASSIFIERS`` builds for any
+dataset, as there, except the 13 of ``zoo_extra.py`` (LeNet, MobileNetV1,
+EfficientNetB0, GoogLeNet, DPN, SENet, ShuffleNets, ResNeXts, PNASNets),
+which raise ``NotImplementedError`` naming the later slice that ports them.
+Each dataset has its default (mnist's is ``NetC_MNIST``).  ``--F_model``
+takes ``original`` (and ``original_holdout``), ``original_dropout``,
+``original_dropout_ensemble`` (dropout live in eval mode) or any classifier
+name, built with two classes.
 
 Every model is built in ``cfg.compute_dtype`` (``layers.py``), the frozen
 clean model and the detector too, as every module of the JAX package reads
-its compute dtype.
+its compute dtype; the layers the JAX package keeps in float32 (the ViTs,
+NetC_MNIST's convolutions) are ``torch.nn``'s own and stay float32.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch.nn as nn
 
 from ..config import Config
-from .frequency import FrequencyModel
+from .densenet import densenet121
+from .frequency import FrequencyModel, FrequencyModelDropoutEnsemble, frequency_model_dropout
 from .generators import (
     CUnetGenerator,
     FixedTriggerGenerator,
@@ -26,26 +33,56 @@ from .generators import (
     UnetGeneratorBK,
 )
 from .layers import parse_compute_dtype, set_compute_dtype
-from .preact_resnet import preact_resnet18
+from .misc import NetC_MNIST
+from .mobilenetv2 import mobilenetv2
+from .preact_resnet import preact_resnet10, preact_resnet18, preact_resnet34
 from .resnet import resnet18, resnet34
+from .vgg import vgg
+from .vit import simplevitsmall8, vit, vitsmall
 
-_LATER = "is not ported yet: the other classifiers, generators and detectors are a later slice of the port"
+_LATER = "is not ported yet: the classifiers of the JAX package's zoo_extra.py are a later slice of the port"
 
-# --model names ported so far (the JAX registry's CLASSIFIERS), and each
-# dataset's default (combat_tpu/models/registry.py::get_classifier)
-_CLASSIFIERS = {"preactresnet18": preact_resnet18, "resnet18": resnet18, "resnet34": resnet34}
-_DEFAULTS = {"cifar10": "preactresnet18", "gtsrb": "preactresnet18", "celeba": "resnet18", "imagenet10": "resnet18"}
+# --model names (the JAX registry's CLASSIFIERS): (num_classes, input_size, in_channels) -> module
+CLASSIFIERS = {
+    "preactresnet18": preact_resnet18,
+    "preactresnet10": preact_resnet10,
+    "preactresnet34": preact_resnet34,
+    "resnet18": resnet18,
+    "resnet34": resnet34,
+    "vgg11": partial(vgg, "VGG11"),
+    "vgg13": partial(vgg, "VGG13"),
+    "vgg16": partial(vgg, "VGG16"),
+    "vgg19": partial(vgg, "VGG19"),
+    "mobilenetv2": mobilenetv2,
+    "densenet121": densenet121,
+    "vit": vit,
+    "simplevitsmall8": simplevitsmall8,
+    "vitsmall": vitsmall,
+}
+# the JAX registry's names from zoo_extra.py, not ported yet
+LATER_CLASSIFIERS = ("lenet", "mobilenet", "efficientnetb0", "googlenet", "dpn26", "dpn92", "senet18",
+                     "shufflenetg2", "shufflenetv2", "resnext29_2x64d", "resnext29_32x4d", "pnasneta", "pnasnetb")
+# each dataset's default (combat_tpu/models/registry.py::get_classifier)
+_DEFAULTS = {"cifar10": preact_resnet18, "gtsrb": preact_resnet18, "celeba": resnet18, "imagenet10": resnet18,
+             "mnist": NetC_MNIST}
+
+
+def _named_classifier(name: str, num_classes: int, cfg: Config) -> nn.Module:
+    if name in LATER_CLASSIFIERS:
+        raise NotImplementedError(f"classifier {name!r} {_LATER}")
+    if name not in CLASSIFIERS:
+        raise ValueError(f"unknown classifier {name!r}; options: {sorted(CLASSIFIERS)}")
+    return CLASSIFIERS[name](num_classes, cfg.input_height, cfg.input_channel)
 
 
 def get_classifier(cfg: Config) -> nn.Module:
     """Default classifier per dataset; a named model is built for any
     dataset, as in the JAX registry."""
-    if cfg.model == "default" and cfg.dataset not in _DEFAULTS:
-        raise NotImplementedError(f"the default classifier of dataset {cfg.dataset!r} {_LATER}")
-    name = _DEFAULTS[cfg.dataset] if cfg.model == "default" else cfg.model
-    if name not in _CLASSIFIERS:
-        raise NotImplementedError(f"classifier {cfg.model!r} {_LATER}")
-    return _in_dtype(cfg, _CLASSIFIERS[name](cfg.num_classes, cfg.input_height, cfg.input_channel))
+    if cfg.model != "default":
+        return _in_dtype(cfg, _named_classifier(cfg.model, cfg.num_classes, cfg))
+    if cfg.dataset not in _DEFAULTS:
+        raise ValueError(f"no default classifier for dataset {cfg.dataset!r}")
+    return _in_dtype(cfg, _DEFAULTS[cfg.dataset](cfg.num_classes, cfg.input_height, cfg.input_channel))
 
 
 def get_generator(cfg: Config, kind: str = "unet") -> nn.Module:
@@ -66,9 +103,18 @@ def get_generator(cfg: Config, kind: str = "unet") -> nn.Module:
 
 
 def get_frequency_detector(cfg: Config) -> nn.Module:
-    if cfg.F_model in ("original", "original_holdout"):
-        return _in_dtype(cfg, FrequencyModel(num_classes=2, input_size=cfg.input_height, in_channels=cfg.input_channel))
-    raise NotImplementedError(f"frequency detector {cfg.F_model!r} {_LATER}")
+    """Frequency detector per ``--F_model`` (reference F_MAPPING_NAMES,
+    ``train_generator.py:35-44,112-120``)."""
+    name, h, c = cfg.F_model, cfg.input_height, cfg.input_channel
+    if name in ("original", "original_holdout"):
+        return _in_dtype(cfg, FrequencyModel(num_classes=2, input_size=h, in_channels=c))
+    if name == "original_dropout":
+        return _in_dtype(cfg, frequency_model_dropout(2, cfg.F_dropout, h, c))
+    if name == "original_dropout_ensemble":
+        return _in_dtype(cfg, FrequencyModelDropoutEnsemble(2, cfg.F_dropout, cfg.F_num_ensemble, h, c))
+    if name in CLASSIFIERS or name in LATER_CLASSIFIERS:
+        return _in_dtype(cfg, _named_classifier(name, 2, cfg))
+    raise ValueError(f"unknown frequency detector {name!r}")
 
 
 def _in_dtype(cfg: Config, model: nn.Module) -> nn.Module:

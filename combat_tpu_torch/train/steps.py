@@ -15,12 +15,23 @@ sigma); absent, the step
 draws from the ``torch.Generator`` it is given.  A step updates its models
 and optimizers in place and returns its metrics as 0-d tensors on the
 batch's device.
+
+A detector whose dropout stays live in eval mode (``--F_model
+original_dropout``, ``original_dropout_ensemble``) takes its masks in the
+role ``drop_F`` (the JAX steps' dropout key, ``k[8]`` of the alternated step,
+``k[1]`` of the eval step), drawn after every other role and only for such a
+detector, so every other configuration draws exactly as before.
+
+A classifier whose dropout is live in train mode (mnist's ``NetC_MNIST``) is
+refused by every training step (:func:`refuse_train_dropout`), where the
+JAX package's C-steps stop too: they apply C with ``train=True`` and pass no
+``dropout`` rng.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -28,6 +39,7 @@ import torch.nn.functional as F
 
 from ..attack.triggers import additive_trigger, create_targets_bd
 from ..config import Config
+from ..models.layers import Dropout, live_dropout
 from ..ops.augment import AugDraws, draw_augment, post_tensor_transform
 from ..ops.blur import draw_sigma
 from ..ops.dct import detector_features
@@ -85,6 +97,34 @@ def full_metrics_mode(cfg: Config) -> bool:
     return cfg.train_metrics == "full"
 
 
+def refuse_train_dropout(C: nn.Module) -> None:
+    """A ``NotImplementedError`` for a classifier with dropout that is live
+    in train mode, as the JAX C-steps stop on it with ``InvalidRngError``."""
+    if any(isinstance(m, Dropout) and m.p > 0.0 for m in C.modules()):
+        raise NotImplementedError(
+            f"{type(C).__name__} has dropout that is live in train mode: the JAX package's C-steps apply the "
+            "classifier with train=True and pass no 'dropout' rng (combat_tpu/train/steps.py:155-157,271-273), "
+            "so they stop there (flax.errors.InvalidRngError); training it needs a role for its masks that "
+            "neither package has"
+        )
+
+
+DetectorMasks = Optional[List[torch.Tensor]]
+
+
+def draw_drop_F(netF: nn.Module, n: int, generator: Optional[torch.Generator], device) -> DetectorMasks:
+    """The detector's dropout masks for a forward on ``n`` rows where its
+    dropout is live in its mode (the eval-live detectors), else None with
+    nothing drawn."""
+    return netF.draw_masks(n, generator, device) if live_dropout(netF) else None
+
+
+def detector_logits(netF: nn.Module, x_bd: torch.Tensor, drop_F: DetectorMasks = None) -> torch.Tensor:
+    """The detector on the DCT features of ``x_bd``, with its masks."""
+    feats = detector_features(x_bd)
+    return netF(feats) if drop_F is None else netF(feats, drop_F)
+
+
 def _count(pred: torch.Tensor, target: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     hit = (pred.argmax(-1) == target).float()
     return (hit if weight is None else hit * weight).sum()
@@ -97,7 +137,7 @@ def _count(pred: torch.Tensor, target: torch.Tensor, weight: Optional[torch.Tens
 
 class AlternatedDraws(NamedTuple):
     """The random draws of one alternated step, in the roles of the JAX
-    step's subkeys ``k[0..7]``."""
+    step's subkeys ``k[0..8]``."""
 
     sigma_c: torch.Tensor  # k[0]: blur sigma of the C-step trigger
     poison: torch.Tensor  # k[1]: (n,) Bernoulli(pc), and-ed with the target-class rows
@@ -107,11 +147,15 @@ class AlternatedDraws(NamedTuple):
     aug_g: AugDraws  # k[5]: C's input in the G-loss
     aug_g_cm: AugDraws  # k[6]: the clean model's input in the G-loss
     aug_clean: AugDraws  # k[7]: C's clean-accuracy metric forward
+    drop_F: DetectorMasks = None  # k[8]: the detector's dropout masks (eval-live detectors only)
 
 
-def draw_alternated(cfg: Config, n: int, generator: Optional[torch.Generator], device) -> AlternatedDraws:
+def draw_alternated(
+    cfg: Config, n: int, generator: Optional[torch.Generator], device, netF: Optional[nn.Module] = None
+) -> AlternatedDraws:
     """Every draw is made in both metric modes, so ``loss_only`` and
-    ``full`` follow the same trajectory from the same generator."""
+    ``full`` follow the same trajectory from the same generator; the
+    detector's masks last, for an eval-live ``netF`` only."""
     return AlternatedDraws(
         sigma_c=draw_sigma(cfg.sigma, generator, device),
         poison=torch.rand((n,), generator=generator, device=device) < cfg.pc,
@@ -121,10 +165,12 @@ def draw_alternated(cfg: Config, n: int, generator: Optional[torch.Generator], d
         aug_g=_draw_aug(cfg, n, generator, device),
         aug_g_cm=_draw_aug(cfg, n, generator, device),
         aug_clean=_draw_aug(cfg, n, generator, device),
+        drop_F=None if netF is None else draw_drop_F(netF, n, generator, device),
     )
 
 
 def make_alternated_train_step(cfg: Config, C: nn.Module, G: nn.Module):
+    refuse_train_dropout(C)
     aug = _aug_fn(cfg)
     trig = _trigger_fn(cfg)
     full_metrics = full_metrics_mode(cfg)
@@ -141,7 +187,7 @@ def make_alternated_train_step(cfg: Config, C: nn.Module, G: nn.Module):
         x, y = batch
         bs = x.shape[0]
         if draws is None:
-            draws = draw_alternated(cfg, bs, generator, x.device)
+            draws = draw_alternated(cfg, bs, generator, x.device, netF)
         bd_targets = create_targets_bd(y, cfg.attack_mode, cfg.target_label, cfg.num_classes)
 
         G.train()
@@ -179,7 +225,7 @@ def make_alternated_train_step(cfg: Config, C: nn.Module, G: nn.Module):
             zero = x.new_zeros(())
             if full_metrics:
                 pred_clean = C(aug(x, draws.aug_clean))
-                pred_F = netF(detector_features(x_bd))
+                pred_F = detector_logits(netF, x_bd, draws.drop_F)
             return {
                 "sample": x.new_tensor(float(bs)),
                 "loss_ce": l_ce.detach(),
@@ -197,10 +243,10 @@ def make_alternated_train_step(cfg: Config, C: nn.Module, G: nn.Module):
     return step
 
 
-def attack_eval_metrics(cfg: Config, C, clean_model, netF, x, y, valid, x_bd) -> Metrics:
+def attack_eval_metrics(cfg: Config, C, clean_model, netF, x, y, valid, x_bd, drop_F: DetectorMasks = None) -> Metrics:
     """Clean, backdoor, detector and clean-model counts of an attack eval
     batch, in eval mode: clean counts over the valid rows, the rest over
-    the valid non-target rows."""
+    the valid non-target rows.  ``drop_F``: the detector's masks, if any."""
     bd_targets = create_targets_bd(y, cfg.attack_mode, cfg.target_label, cfg.num_classes)
     vf, nf = valid.float(), ((y != cfg.target_label) & valid).float()
     cm_bd = clean_model(x_bd)
@@ -209,7 +255,7 @@ def attack_eval_metrics(cfg: Config, C, clean_model, netF, x, y, valid, x_bd) ->
         "bd_sample": nf.sum(),
         "clean_correct": _count(C(x), y, vf),
         "bd_correct": _count(C(x_bd), bd_targets, nf),
-        "F_correct": _count(netF(detector_features(x_bd)), torch.ones_like(y), nf),
+        "F_correct": _count(detector_logits(netF, x_bd, drop_F), torch.ones_like(y), nf),
         "clean_model_correct": _count(clean_model(x), y, vf),
         "clean_model_bd_ba": _count(cm_bd, y, nf),
         "clean_model_bd_asr": _count(cm_bd, bd_targets, nf),
@@ -228,12 +274,18 @@ def make_attack_eval_step(cfg: Config, C: nn.Module, G: nn.Module):
         batch,
         generator: Optional[torch.Generator] = None,
         sigma_draw: Optional[torch.Tensor] = None,
+        drop_F: DetectorMasks = None,
     ) -> Metrics:
+        """``sigma_draw`` and ``drop_F`` take the roles of the JAX step's
+        ``k[0]`` and ``k[1]``; absent, each is drawn from ``generator`` in
+        that order."""
         x, y, valid = batch
         C.eval()
         G.eval()
         x_bd = trig(x, G(x), sigma_draw=sigma_draw, generator=generator)
-        return attack_eval_metrics(cfg, C, clean_model, netF, x, y, valid, x_bd)
+        if drop_F is None:
+            drop_F = draw_drop_F(netF, x.shape[0], generator, x.device)
+        return attack_eval_metrics(cfg, C, clean_model, netF, x, y, valid, x_bd, drop_F)
 
     return step
 
@@ -244,6 +296,7 @@ def make_attack_eval_step(cfg: Config, C: nn.Module, G: nn.Module):
 
 
 def make_clean_train_step(cfg: Config, C: nn.Module):
+    refuse_train_dropout(C)
     aug = _aug_fn(cfg)
 
     def step(
@@ -303,6 +356,7 @@ def make_victim_train_step(cfg: Config, C: nn.Module, G: nn.Module):
     triggered images and backdoor labels.  G is frozen: it runs in eval mode
     without a gradient, so the fused trigger launches its forward kernel
     only."""
+    refuse_train_dropout(C)
     aug = _aug_fn(cfg)
     trig = _trigger_fn(cfg)
 

@@ -26,12 +26,14 @@ multilabel G-step (another label map) keep their own forwards.
 Every random draw can be passed in as a ``NamedTuple`` named by role (the
 imperceptible and multilabel steps draw in the roles of
 :class:`~combat_tpu_torch.train.steps.AlternatedDraws`); absent, the step
-draws from the ``torch.Generator`` it is given.
+draws from the ``torch.Generator`` it is given.  An eval-live detector's
+masks take the role ``drop_F``, drawn last and only for such a detector
+(``steps.py``); the eval steps take them as an argument.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -41,11 +43,11 @@ from ..attack.triggers import create_targets_bd, warp_flow, warp_grid
 from ..config import Config
 from ..ops.augment import AugDraws
 from ..ops.blur import draw_sigma
-from ..ops.dct import detector_features
 from ..ops.image import grid_sample, total_variation
 from .state import TrainState
 from .steps import (
     AlternatedDraws,
+    DetectorMasks,
     Metrics,
     _aug_fn,
     _count,
@@ -53,9 +55,12 @@ from .steps import (
     _trigger_fn,
     attack_eval_metrics,
     cross_entropy,
+    detector_logits,
     draw_alternated,
+    draw_drop_F,
     full_metrics_mode,
     grad_l2_metric,
+    refuse_train_dropout,
 )
 
 
@@ -84,7 +89,7 @@ def _clean_model_preds(full_metrics, clean_model, aug, x, aug_cm) -> Optional[to
         return clean_model(aug(x, aug_cm))
 
 
-def _metric_counts(C, netF, aug, x, y, x_bd, aug_clean, clean_preds) -> Metrics:
+def _metric_counts(C, netF, aug, x, y, x_bd, aug_clean, clean_preds, drop_F: DetectorMasks) -> Metrics:
     """The metric-only counts of a step, zeros when ``clean_preds`` is None
     (``loss_only`` mode)."""
     if clean_preds is None:
@@ -92,7 +97,7 @@ def _metric_counts(C, netF, aug, x, y, x_bd, aug_clean, clean_preds) -> Metrics:
         return {"clean_correct": zero, "F_correct": zero, "clean_model_correct": zero}
     return {
         "clean_correct": _count(C(aug(x, aug_clean)), y),
-        "F_correct": _count(netF(detector_features(x_bd)), torch.ones_like(y)),
+        "F_correct": _count(detector_logits(netF, x_bd, drop_F), torch.ones_like(y)),
         "clean_model_correct": _count(clean_preds, y),
     }
 
@@ -118,7 +123,7 @@ def _wanet_grad_l2(flow_up: torch.Tensor) -> torch.Tensor:
 
 class WanetDraws(NamedTuple):
     """The draws of one WaNet step, in the roles of the JAX step's subkeys
-    ``k[0..5]`` (no trigger sigma: the warp does not blur)."""
+    ``k[0..6]`` (no trigger sigma: the warp does not blur)."""
 
     poison: torch.Tensor  # k[0]: (n,) Bernoulli(pc), and-ed with the target-class rows
     aug_c: AugDraws  # k[1]: augmentation of the C-step batch
@@ -126,9 +131,10 @@ class WanetDraws(NamedTuple):
     aug_g: AugDraws  # k[3]: C's input in the G-loss
     aug_g_cm: AugDraws  # k[4]: the clean model's input in the G-loss
     aug_clean: AugDraws  # k[5]: C's clean-accuracy metric forward
+    drop_F: DetectorMasks = None  # k[6]: the detector's dropout masks (eval-live detectors only)
 
 
-def draw_wanet(cfg: Config, n: int, generator: Optional[torch.Generator], device) -> WanetDraws:
+def draw_wanet(cfg: Config, n: int, generator: Optional[torch.Generator], device, netF=None) -> WanetDraws:
     return WanetDraws(
         poison=torch.rand((n,), generator=generator, device=device) < cfg.pc,
         aug_c=_draw_aug(cfg, n, generator, device),
@@ -136,10 +142,12 @@ def draw_wanet(cfg: Config, n: int, generator: Optional[torch.Generator], device
         aug_g=_draw_aug(cfg, n, generator, device),
         aug_g_cm=_draw_aug(cfg, n, generator, device),
         aug_clean=_draw_aug(cfg, n, generator, device),
+        drop_F=None if netF is None else draw_drop_F(netF, n, generator, device),
     )
 
 
 def make_wanet_train_step(cfg: Config, C: nn.Module, G: nn.Module):
+    refuse_train_dropout(C)
     aug = _aug_fn(cfg)
     full_metrics = full_metrics_mode(cfg)
 
@@ -147,7 +155,7 @@ def make_wanet_train_step(cfg: Config, C: nn.Module, G: nn.Module):
         x, y = batch
         bs = x.shape[0]
         if draws is None:
-            draws = draw_wanet(cfg, bs, generator, x.device)
+            draws = draw_wanet(cfg, bs, generator, x.device, netF)
         bd_targets = create_targets_bd(y, cfg.attack_mode, cfg.target_label, cfg.num_classes)
         G.train()
         flow = G(x)  # the one generator forward of the step
@@ -176,7 +184,7 @@ def make_wanet_train_step(cfg: Config, C: nn.Module, G: nn.Module):
                 "loss_l2": l_l2.detach(),
                 "loss_grad_l2": _wanet_grad_l2(flow_up.detach()),
                 "clean_model_loss": l_cm.detach(),
-                **_metric_counts(C, netF, aug, x, y, x_bd.detach(), draws.aug_clean, clean_preds),
+                **_metric_counts(C, netF, aug, x, y, x_bd.detach(), draws.aug_clean, clean_preds, draws.drop_F),
                 **_attack_counts(pred_bd, cm_bd, y, bd_targets),
             }
 
@@ -185,12 +193,15 @@ def make_wanet_train_step(cfg: Config, C: nn.Module, G: nn.Module):
 
 def make_wanet_eval_step(cfg: Config, C: nn.Module, G: nn.Module):
     @torch.no_grad()
-    def step(clean_model, netF, batch, generator=None) -> Metrics:
+    def step(clean_model, netF, batch, generator=None, drop_F: DetectorMasks = None) -> Metrics:
+        """``drop_F``: the detector's masks (the JAX step's ``key``)."""
         x, y, valid = batch
         C.eval()
         G.eval()
         x_bd, _ = wanet_apply(x, G(x), cfg.grid_rescale)
-        return attack_eval_metrics(cfg, C, clean_model, netF, x, y, valid, x_bd)
+        if drop_F is None:
+            drop_F = draw_drop_F(netF, x.shape[0], generator, x.device)
+        return attack_eval_metrics(cfg, C, clean_model, netF, x, y, valid, x_bd, drop_F)
 
     return step
 
@@ -214,9 +225,10 @@ class InputawareDraws(NamedTuple):
     aug_cross: AugDraws  # k[7]: C's input of the cross loss
     aug_g_cm: AugDraws  # k[8]: the clean model's input in the G-loss
     aug_clean: AugDraws  # k[9]: C's clean-accuracy metric forward
+    drop_F: DetectorMasks = None  # k[0] again: the detector's dropout masks (eval-live detectors only)
 
 
-def draw_inputaware(cfg: Config, n: int, generator: Optional[torch.Generator], device) -> InputawareDraws:
+def draw_inputaware(cfg: Config, n: int, generator: Optional[torch.Generator], device, netF=None) -> InputawareDraws:
     return InputawareDraws(
         sigma_c=draw_sigma(cfg.sigma, generator, device),
         poison=torch.rand((n,), generator=generator, device=device) < cfg.pc,
@@ -228,10 +240,12 @@ def draw_inputaware(cfg: Config, n: int, generator: Optional[torch.Generator], d
         aug_cross=_draw_aug(cfg, n, generator, device),
         aug_g_cm=_draw_aug(cfg, n, generator, device),
         aug_clean=_draw_aug(cfg, n, generator, device),
+        drop_F=None if netF is None else draw_drop_F(netF, n, generator, device),
     )
 
 
 def make_inputaware_train_step(cfg: Config, C: nn.Module, G: nn.Module):
+    refuse_train_dropout(C)
     aug = _aug_fn(cfg)
     trig = _trigger_fn(cfg)
     full_metrics = full_metrics_mode(cfg)
@@ -241,7 +255,7 @@ def make_inputaware_train_step(cfg: Config, C: nn.Module, G: nn.Module):
         x, y, x2 = batch
         bs = x.shape[0]
         if draws is None:
-            draws = draw_inputaware(cfg, bs, generator, x.device)
+            draws = draw_inputaware(cfg, bs, generator, x.device, netF)
         bd_targets = create_targets_bd(y, cfg.attack_mode, cfg.target_label, cfg.num_classes)
         G.train()
         noise = G(x)  # shared by the C-step (detached) and the G-loss
@@ -275,7 +289,7 @@ def make_inputaware_train_step(cfg: Config, C: nn.Module, G: nn.Module):
                 "loss_cross": l_cross.detach(),
                 "clean_model_loss": l_cm.detach(),
                 "cross_correct": _count(pred_cross, y),
-                **_metric_counts(C, netF, aug, x, y, x_bd.detach(), draws.aug_clean, clean_preds),
+                **_metric_counts(C, netF, aug, x, y, x_bd.detach(), draws.aug_clean, clean_preds, draws.drop_F),
                 **_attack_counts(pred_bd, cm_bd, y, bd_targets),
             }
 
@@ -306,12 +320,17 @@ def make_inputaware_eval_step(cfg: Config, C: nn.Module, G: nn.Module):
     trig = _trigger_fn(cfg)
 
     @torch.no_grad()
-    def step(clean_model, netF, batch, generator=None, draws: Optional[PairSigmas] = None) -> Metrics:
+    def step(clean_model, netF, batch, generator=None, draws: Optional[PairSigmas] = None,
+             drop_F: DetectorMasks = None) -> Metrics:
+        """``drop_F``: the detector's masks (the JAX step's ``k[2]``), drawn
+        after the sigmas."""
         x, y, x2, valid = batch
         C.eval()
         G.eval()
         x_bd, x_bd2 = _pair_triggers(cfg, G, trig, x, x2, generator, draws)
-        m = attack_eval_metrics(cfg, C, clean_model, netF, x, y, valid, x_bd)
+        if drop_F is None:
+            drop_F = draw_drop_F(netF, x.shape[0], generator, x.device)
+        m = attack_eval_metrics(cfg, C, clean_model, netF, x, y, valid, x_bd, drop_F)
         nf = ((y != cfg.target_label) & valid).float()
         return {**m, "cross_correct": _count(C(x_bd2), y, nf)}
 
@@ -326,6 +345,7 @@ def make_inputaware_eval_step(cfg: Config, C: nn.Module, G: nn.Module):
 def make_imperceptible_train_step(cfg: Config, C: nn.Module, G: nn.Module):
     """The base alternated step with ``tv_weight * TV(x_bd).mean()`` in the
     G-loss; its draws take the roles of :class:`AlternatedDraws`."""
+    refuse_train_dropout(C)
     aug = _aug_fn(cfg)
     trig = _trigger_fn(cfg)
     full_metrics = full_metrics_mode(cfg)
@@ -335,7 +355,7 @@ def make_imperceptible_train_step(cfg: Config, C: nn.Module, G: nn.Module):
         x, y = batch
         bs = x.shape[0]
         if draws is None:
-            draws = draw_alternated(cfg, bs, generator, x.device)
+            draws = draw_alternated(cfg, bs, generator, x.device, netF)
         bd_targets = create_targets_bd(y, cfg.attack_mode, cfg.target_label, cfg.num_classes)
         G.train()
         noise = G(x)
@@ -367,7 +387,7 @@ def make_imperceptible_train_step(cfg: Config, C: nn.Module, G: nn.Module):
                 "loss_tv": l_tv.detach(),
                 "loss_grad_l2": grad_l2_metric(x, x_bd),
                 "clean_model_loss": l_cm.detach(),
-                **_metric_counts(C, netF, aug, x, y, x_bd, draws.aug_clean, clean_preds),
+                **_metric_counts(C, netF, aug, x, y, x_bd, draws.aug_clean, clean_preds, draws.drop_F),
                 **_attack_counts(pred_bd, cm_bd, y, bd_targets),
             }
 
@@ -390,6 +410,7 @@ def multilabel_targets(bs: int, num_classes: int, device) -> torch.Tensor:
 def make_multilabel_train_step(cfg: Config, C: nn.Module, G: nn.Module):
     """Its draws take the roles of :class:`AlternatedDraws`; the poison draw
     picks rows of any class, each triggered toward its own label."""
+    refuse_train_dropout(C)
     aug = _aug_fn(cfg)
     trig = _trigger_fn(cfg)
     full_metrics = full_metrics_mode(cfg)
@@ -399,7 +420,7 @@ def make_multilabel_train_step(cfg: Config, C: nn.Module, G: nn.Module):
         x, y = batch
         bs = x.shape[0]
         if draws is None:
-            draws = draw_alternated(cfg, bs, generator, x.device)
+            draws = draw_alternated(cfg, bs, generator, x.device, netF)
         G.train()
 
         with torch.no_grad():
@@ -425,7 +446,7 @@ def make_multilabel_train_step(cfg: Config, C: nn.Module, G: nn.Module):
                 "loss_ce": l_ce.detach(),
                 "loss_l2": l_l2.detach(),
                 "clean_model_loss": l_cm.detach(),
-                **_metric_counts(C, netF, aug, x, y, x_bd.detach(), draws.aug_clean, clean_preds),
+                **_metric_counts(C, netF, aug, x, y, x_bd.detach(), draws.aug_clean, clean_preds, draws.drop_F),
                 **_attack_counts(pred_bd, cm_bd, y, bd_targets),
             }
 
@@ -436,17 +457,22 @@ def make_multilabel_eval_step(cfg: Config, C: nn.Module, G: nn.Module):
     """Every target class ci in turn, over the valid rows with y != ci
     (reference ``train_generator_multilabel.py:355-378``); the detector
     counts all valid rows each pass, as the reference does (``:378``).
-    ``sigma_draws`` holds one blur sigma per class."""
+    ``sigma_draws`` holds one blur sigma per class and ``drop_F`` the
+    detector's masks per class (the JAX step's ``fold_in(key, ci)`` and
+    ``fold_in(key, 1000 + ci)``), drawn in that order."""
     trig = _trigger_fn(cfg)
 
     @torch.no_grad()
-    def step(clean_model, netF, batch, generator=None, sigma_draws: Optional[torch.Tensor] = None) -> Metrics:
+    def step(clean_model, netF, batch, generator=None, sigma_draws: Optional[torch.Tensor] = None,
+             drop_F: Optional[List[DetectorMasks]] = None) -> Metrics:
         x, y, valid = batch
         C.eval()
         G.eval()
         vf = valid.float()
         if sigma_draws is None:
             sigma_draws = torch.stack([draw_sigma(cfg.sigma, generator, x.device) for _ in range(cfg.num_classes)])
+        if drop_F is None:
+            drop_F = [draw_drop_F(netF, x.shape[0], generator, x.device) for _ in range(cfg.num_classes)]
         per_class = []
         for ci in range(cfg.num_classes):
             tmp = torch.full_like(y, ci)
@@ -458,7 +484,7 @@ def make_multilabel_eval_step(cfg: Config, C: nn.Module, G: nn.Module):
                 "bd_correct": _count(C(x_bd), tmp, nf),
                 "clean_model_bd_ba": _count(cm_bd, y, nf),
                 "clean_model_bd_asr": _count(cm_bd, tmp, nf),
-                "F_correct": _count(netF(detector_features(x_bd)), torch.ones_like(y), vf),
+                "F_correct": _count(detector_logits(netF, x_bd, drop_F[ci]), torch.ones_like(y), vf),
             })
         return {
             "clean_sample": vf.sum(),
@@ -479,6 +505,7 @@ def make_wanet_victim_train_step(cfg: Config, C: nn.Module, G: nn.Module):
     """Victim training with the warp trigger on the fixed poisoned subset
     (reference ``train_victim_wanet.py:58-135``); its one draw is the
     augmentation (the JAX step's ``k[0]``)."""
+    refuse_train_dropout(C)
     aug = _aug_fn(cfg)
 
     def step(stateC: TrainState, batch, generator=None, draws: Optional[AugDraws] = None) -> Metrics:

@@ -81,14 +81,32 @@ Phases, each printing one line with its seconds:
      the checkpoints of phases 3-5; 5z STRIP, fine-pruning and the
      ``original`` detector's training and trigger test at 224 px on those
      of 5m-5q (the tiled K1);
+  5za-5zc. the extended zoo (``models/zoo_extra.py``), each phase held to
+     the counts in ``ZOO_EXTRA_PHASES``, ``ZOO_EXTRA_DETECTOR_PHASES`` and
+     ``ZOO_EXTRA_224_PHASES``: 5za ``--model googlenet``, ``dpn92`` and
+     ``senet18`` through the four stages and the nine other trainable
+     names through a clean classifier and a generator (cifar10, bs 128,
+     256 images), then ``--model efficientnetb0``, whose C-step stops with
+     the ``NotImplementedError`` the run asserts and prints (the JAX
+     C-steps pass its dropout no rng); 5zb ``frequency_train --F_model
+     efficientnetb0`` (2 epochs of 256 images, its broadcast dropout masks
+     drawn on the card), a generator that must load that detector and its
+     ``frequency_eval``, and ``--F_model shufflenetv2`` in a generator, a
+     random detector recorded as such; 5zc celeba (64 px) ShuffleNetG2 and
+     imagenet10 (224 px, bs 32, 64 images, the tiled K1/K2) MobileNetV1,
+     each a clean classifier and a generator, with the peak device memory
+     of the latter two;
   6. one alternated step and one victim step at full width on the card
      against the same step on the CPU, from the same weights and draws, one
      input-aware and one multilabel step (bs 32), and one alternated step
      at 96 px (ResNet18, bs 4) where the tiled K1/K2 run inside the step,
      and one alternated step with DenseNet121 as C and the clean model and
      the dropout-ensemble detector, its masks drawn once and given to both,
-     and one train step of the ``original`` frequency detector (bs 128)
-     from the same corruption draws and dropout masks;
+     one alternated step with DPN26 (bs 128; its 32-group convolutions),
+     one train step of the ``original`` frequency detector (bs 128)
+     from the same corruption draws and dropout masks, and one of an
+     EfficientNetB0 detector (its broadcast masks drawn once, held by its
+     gradients);
      then the alternated and victim steps in bfloat16 on the card and on
      the CPU on six seeds, held by the gap criterion of
      ``combat_tpu_torch/utils/gap.py`` with the card's float32 step as the
@@ -98,7 +116,8 @@ Phases, each printing one line with its seconds:
      routes (K1/K2, K3, ATen) and in both metric modes, the victim step
      on the K1 and ATen routes, and each variant's step on the K1/K2 route;
      then (3 steps each) the alternated and victim steps with VGG16,
-     MobileNetV2, DenseNet121, ViT and ViT-small as C, the imagenet10
+     MobileNetV2, DenseNet121, ViT, ViT-small and the extended zoo's twelve
+     trainable names as C, the imagenet10
      alternated step at 224 px, bs 32 on the K1/K2 and ATen routes with the
      K1/K2 step's peak device memory, the imagenet10 victim step, and the
      celeba alternated step (bs 128); all of it in float32, then in
@@ -107,7 +126,8 @@ Phases, each printing one line with its seconds:
      one Neural Cleanse step, one detector train step) and the hoisted
      fine-pruning sweep against a per-mask sweep on 32 images.
 Then one JSON line of the kernels (launches on the main path, phases 3-5,
-5c-5e, 5f-5k, 5l-5q, 5r-5t, 5u-5w and 5x-5z, errors, times, bounds) and, last,
+5c-5e, 5f-5k, 5l-5q, 5r-5t, 5u-5w, 5x-5z and 5za-5zc, errors, times, bounds)
+and, last,
 ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
@@ -744,6 +764,94 @@ def zoo_step_agreement() -> None:
            ("loss_ce", "loss_l2", "clean_model_loss", "loss_grad_l2"), ((c_gpu, c_cpu), (g_gpu, g_cpu)))
 
 
+def zoo_extra_step_agreement() -> None:
+    """Phase 6, the extended zoo: one alternated step at full width with
+    ``ZOO_EXTRA_AGREEMENT`` as C and the clean model on the card and on the
+    CPU, from the same weights and draws: DPN26 at bs 128, its 32-group
+    convolutions and the dense path's channel slices and concatenation.
+    The families with channel shuffles are too ill-conditioned for phase
+    6's 1e-4: on the CPU alone an input noise of 1e-6 moves ShuffleNetV2's
+    stem conv by 4.2e-4 at bs 16 and 1.5e-4 at bs 128, ShuffleNetG2's by
+    3.4e-3 at bs 16 and 1.8e-3 at bs 64; DPN26's by 1.3e-4 at bs 16 and
+    4.6e-5 at bs 128, where BatchNorm's statistics over 128 rows move less
+    with the input (``scripts/step_conditioning.py``).  The shuffles run on
+    the card in phases 5za-5zc and 7."""
+    import torch
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.train import TrainState, draw_alternated, freeze, make_alternated_train_step, multistep_lr
+
+    name, n = ZOO_EXTRA_AGREEMENT
+    cfg = apply_dataset_preset(Config(model=name))
+    torch.manual_seed(11)
+    weights = [get_classifier(cfg), get_generator(cfg), get_classifier(cfg), get_frequency_detector(cfg)]
+    gen = torch.Generator().manual_seed(12)
+    x = torch.rand((n, 3, 32, 32), generator=gen) * 2 - 1
+    y = torch.arange(n) % 4
+    draws = draw_alternated(cfg, n, gen, "cpu")
+    results = {}
+    for dev in ("cuda", "cpu"):
+        C, G, cm, nf = (copy.deepcopy(m).to(dev) for m in weights)
+        sched = multistep_lr(0.01, (100,), 0.1, 10)
+        stateC, stateG = TrainState(C, sched), TrainState(G, sched)
+        m = make_alternated_train_step(cfg, C, G)(stateC, stateG, freeze(cm), freeze(nf), (x.to(dev), y.to(dev)),
+                                                  draws=_to(draws, dev))
+        results[dev] = ({k: float(v) for k, v in m.items()}, C.state_dict(), G.state_dict())
+    (m_gpu, c_gpu, g_gpu), (m_cpu, c_cpu, g_cpu) = results["cuda"], results["cpu"]
+    _agree(f"{name} alternated step (bs {n})", m_gpu, m_cpu, ("loss_ce", "loss_l2", "clean_model_loss", "loss_grad_l2"),
+           ((c_gpu, c_cpu), (g_gpu, g_cpu)))
+
+
+def efficientnet_detector_step_agreement() -> None:
+    """Phase 6: one train step of an EfficientNetB0 detector (``--F_model
+    efficientnetb0``, bs 128, Adam) on the card and on the CPU, from the same
+    weights, corruption draws and dropout masks (drawn once on the CPU, one
+    keep per row and channel).  Adam's first update is lr x g / (|g| +
+    1e-8), a full step of either sign wherever |g| is well above 1e-8, so a
+    gradient near 1e-8 moves its parameter with the rounding of its sum (a
+    CPU test of the port against the JAX step found one at 2.6e-8 in
+    float64): the card is held to the CPU on the gradients the step leaves
+    in ``.grad`` (1e-4 absolute), the loss (1e-3 relative), the counts and
+    the running statistics (1e-4 relative)."""
+    import torch
+
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.defenses.frequency import draw_detector, make_detector_train_step
+    from combat_tpu_torch.defenses.frequency_train import detector_optimizer
+    from combat_tpu_torch.models import get_frequency_detector
+
+    cfg = apply_dataset_preset(Config(F_model="efficientnetb0"))
+    torch.manual_seed(19)
+    weights = get_frequency_detector(cfg).train()
+    gen = torch.Generator().manual_seed(20)
+    x01 = torch.rand((BS, C, H, H), generator=gen)
+    draws = draw_detector(weights, x01, gen)
+    if draws.drop is None or len(draws.drop) != 16 or tuple(draws.drop[0].shape) != (2 * BS, 16, 1, 1):
+        raise SystemExit("the EfficientNet detector's broadcast dropout masks were not drawn")
+    results = {}
+    for dev in ("cuda", "cpu"):
+        netF = copy.deepcopy(weights).to(dev)
+        m = make_detector_train_step(netF)(detector_optimizer(cfg, netF.parameters()), (x01.to(dev), None),
+                                           draws=_to(draws, dev))
+        grads = {k: p.grad.detach().cpu() for k, p in netF.named_parameters()}
+        results[dev] = ({k: float(v) for k, v in m.items()}, netF.state_dict(), grads)
+    (m_gpu, sd_gpu, g_gpu), (m_cpu, sd_cpu, g_cpu) = results["cuda"], results["cpu"]
+    if m_gpu["correct"] != m_cpu["correct"]:
+        raise SystemExit(f"EfficientNet detector step: card counts {m_gpu['correct']} correct, CPU {m_cpu['correct']}")
+    if not abs(m_gpu["loss_ce"] - m_cpu["loss_ce"]) <= 1e-3 * max(1.0, abs(m_cpu["loss_ce"])):
+        raise SystemExit(f"EfficientNet detector step: card and CPU losses {m_gpu['loss_ce']}, {m_cpu['loss_ce']}")
+    stats = ("running_mean", "running_var")
+    worst_stat = max(float(((sd_gpu[k].cpu() - v).abs() / v.abs().clamp_min(1.0)).max()) for k, v in sd_cpu.items()
+                     if k.endswith(stats))
+    worst_grad = max(float((g_gpu[k] - v).abs().max()) for k, v in g_cpu.items())
+    print(f"  card vs CPU, one EfficientNet detector step: loss_ce {m_gpu['loss_ce']:.6f} vs {m_cpu['loss_ce']:.6f}; "
+          f"max |grad diff| = {worst_grad:.3e} (tolerance 1e-4), max relative |running statistics diff| = "
+          f"{worst_stat:.3e} (tolerance 1e-4)", flush=True)
+    if not (worst_grad <= 1e-4 and worst_stat <= 1e-4):
+        raise SystemExit("EfficientNet detector step: card and CPU gradients or statistics disagree")
+
+
 def variant_step_agreement() -> None:
     """Phase 6, the variants: one full-width input-aware step and one
     multilabel step (bs 32) on the card (K1/K2) and on the CPU (plain
@@ -820,6 +928,9 @@ def detector_step_agreement() -> None:
            (({k: v for k, v in sd_gpu.items() if not k.endswith(stats)}, {k: v for k, v in sd_cpu.items()
                                                                           if not k.endswith(stats)}),))
 
+
+# Phase 6's extended-zoo step: (--model, batch size); scripts/step_conditioning.py
+ZOO_EXTRA_AGREEMENT = ("dpn26", 128)
 
 # Phase 6's bfloat16 steps run on these seeds (weights, batch and draws): a
 # loss, or a tensor of a few numbers, is one draw of the rounding noise, and
@@ -1144,15 +1255,15 @@ def fine_pruning_speedup() -> dict:
 def zoo_step_times(base, x, y, poisoned, gen, sched, record) -> None:
     """Phase 7, the rest of the registry: the alternated step (full
     metrics, K1/K2 route) and the victim step (K1) at bs 128 with each of
-    ``ZOO_TIMED`` as C (and as the clean model), in ``base``'s compute
-    dtype; 2 warm-up and 3 timed steps each."""
+    ``ZOO_TIMED`` and ``ZOO_EXTRA_TIMED`` as C (and as the clean model), in
+    ``base``'s compute dtype; 2 warm-up and 3 timed steps each."""
     import torch
 
     from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
     from combat_tpu_torch.train import TrainState, freeze, make_alternated_train_step, make_victim_train_step
 
     dev = x.device
-    for name in ZOO_TIMED:
+    for name in ZOO_TIMED + ZOO_EXTRA_TIMED:
         cfg = base.replace(model=name)
         torch.manual_seed(4)
         C_, G = get_classifier(cfg).to(dev), get_generator(cfg).to(dev)
@@ -1169,6 +1280,9 @@ def zoo_step_times(base, x, y, poisoned, gen, sched, record) -> None:
 # not driven at 224 px, where its 3136 tokens would need ~10 GB of float32
 # attention matrices a layer at bs 32)
 ZOO_TIMED = ("vgg16", "mobilenetv2", "densenet121", "vit", "vitsmall")
+# and the extended zoo's trainable names (efficientnetb0's C-step stops, as in the JAX package)
+ZOO_EXTRA_TIMED = ("lenet", "mobilenet", "googlenet", "dpn26", "dpn92", "senet18", "shufflenetg2", "shufflenetv2",
+                   "resnext29_2x64d", "resnext29_32x4d", "pnasneta", "pnasnetb")
 
 
 def large_step_times(base, sched, record) -> dict:
@@ -1428,11 +1542,12 @@ def _four_stages(phase, name, data, flags=()):
     )
 
 
-def _generator_only(name):
-    flags, p = _CIFAR + ["--model", name], f"smoke_{name}"
+def _generator_only(name, phase="5u", data=_CIFAR, prefix=None):
+    flags, p = list(data) + ["--model", name], prefix or f"smoke_{name}"
     return (
-        (f"5u {name} clean", "train_clean_classifier", p, flags, (0, 0, 0)),
-        (f"5u {name} generator", "train_generator", f"{p}_atk", flags + ["--load_checkpoint_clean", p], _GENERATOR),
+        (f"{phase} {name} clean", "train_clean_classifier", p, flags, (0, 0, 0)),
+        (f"{phase} {name} generator", "train_generator", f"{p}_atk", flags + ["--load_checkpoint_clean", p],
+         _GENERATOR),
     )
 
 
@@ -1619,11 +1734,69 @@ DEFENSE_PHASES = (  # (phase, module, flags, (K1, K2, K3), check of its result a
 )
 
 
-def run_defense_phases(workdir) -> dict:
-    """Phases 5x-5z (``DEFENSE_PHASES``), from the work folder, with the
-    attack's save gates open: each entry point with the launch counts set
-    to 0 just before it, held to its predicted counts just after, its result
-    and its files checked.  Returns each phase's counts."""
+# Phases 5za-5zc: the extended zoo (models/zoo_extra.py) through the entry
+# points, each phase held to counts predicted as for 5u-5w (a --model or
+# --F_model leaves the trigger route alone: a clean classifier nothing, a
+# generator K1 2 x 2 + 1 and K2 2, a victim K1 2 + 1, an eval or
+# frequency_eval K1 once, frequency_train nothing).  5za: cifar10, bs 128,
+# 256 images, GoogLeNet, DPN92 and SENet18 through the four stages and the
+# other trainable names through a clean classifier and a generator, then
+# --model efficientnetb0, whose C-step stops (:func:`efficientnet_stops`);
+# 5zb: frequency_train --F_model efficientnetb0 (2 epochs, its dropout masks
+# drawn on the card), a generator that must load that detector and its
+# frequency_eval, from the work folder as 5x, and --F_model shufflenetv2 in a
+# generator, a random detector recorded as such; 5zc: celeba (64 px)
+# ShuffleNetG2 and imagenet10 (224 px, bs 32, 64 images, the tiled K1/K2)
+# MobileNetV1, each a clean classifier and a generator.
+ZOO_EXTRA_FOUR_STAGES = ("googlenet", "dpn92", "senet18")
+ZOO_EXTRA_GENERATORS = ("lenet", "mobilenet", "dpn26", "shufflenetg2", "shufflenetv2", "resnext29_2x64d",
+                        "resnext29_32x4d", "pnasneta", "pnasnetb")
+ZOO_EXTRA_PHASES = (  # (phase, entry point, saving prefix or None, flags, (K1, K2, K3))
+    *(stage for name in ZOO_EXTRA_FOUR_STAGES for stage in _four_stages("5za", name, _CIFAR, ["--model", name])),
+    *(stage for name in ZOO_EXTRA_GENERATORS for stage in _generator_only(name, "5za")),
+    ("5zb shufflenetv2 detector generator", "train_generator", "smoke_F_shufflenetv2",
+     _CIFAR + ["--F_model", "shufflenetv2"] + _CLEAN, _GENERATOR),
+    *_generator_only("shufflenetg2", "5zc celeba", _CELEBA, "smoke_celeba_sg2"),
+)
+ZOO_EXTRA_224_PHASES = _generator_only("mobilenet", "5zc imagenet10", _IMAGENET, "smoke_in_mb")
+ZOO_EXTRA_DETECTOR_PHASES = (  # (phase, module, flags, (K1, K2, K3), check of its result and files)
+    ("5zb frequency_train efficientnetb0", "defenses.frequency_train",
+     _CIFAR + ["--F_model", "efficientnetb0", "--n_iters", "2"] + _F, (0, 0, 0),
+     _check_detector("cifar10", "efficientnetb0")),
+    ("5zb generator on the efficientnetb0 detector", "cli.train_generator",
+     _CIFAR + ["--F_model", "efficientnetb0", "--saving_prefix", "smoke_F_effnet"] + _F + _CLEAN, _GENERATOR,
+     _check_loaded("smoke_F_effnet")),
+    ("5zb frequency_eval efficientnetb0", "defenses.frequency_eval",
+     _CIFAR + ["--F_model", "efficientnetb0", "--load_checkpoint", "smoke_F_effnet_clean"] + _F, (1, 0, 0),
+     _check_percentages),
+)
+
+
+def efficientnet_stops(workdir) -> str:
+    """Phase 5za: ``--model efficientnetb0`` stops at its C-step with a
+    ``NotImplementedError`` that names the dropout rng the JAX C-steps do
+    not pass (they stop there with ``InvalidRngError``).  Any other outcome
+    fails the run."""
+    from combat_tpu_torch.cli import train_clean_classifier
+
+    argv = ["--device", "cuda", "--synthetic_data", "--n_iters", "1", "--checkpoints", workdir, *_CIFAR,
+            "--model", "efficientnetb0", "--saving_prefix", "smoke_effnet"]
+    try:
+        train_clean_classifier.main(argv)
+    except NotImplementedError as e:
+        if "'dropout' rng" not in str(e):
+            raise SystemExit(f"--model efficientnetb0 stopped, but not for its dropout rng: {e}") from e
+        print(f"  5za efficientnetb0 as --model: stops as the JAX package does, NotImplementedError: {e}", flush=True)
+        return str(e)
+    raise SystemExit("--model efficientnetb0 trained a C-step, which the JAX package cannot")
+
+
+def run_defense_phases(workdir, phases=DEFENSE_PHASES) -> dict:
+    """Phases 5x-5z (``DEFENSE_PHASES``) or 5zb's detector
+    (``ZOO_EXTRA_DETECTOR_PHASES``), from the work folder, with the attack's
+    save gates open: each entry point with the launch counts set to 0 just
+    before it, held to its predicted counts just after, its result and its
+    files checked.  Returns each phase's counts."""
     import importlib
 
     from combat_tpu_torch.ops import trigger_kernels as tk
@@ -1631,7 +1804,7 @@ def run_defense_phases(workdir) -> dict:
     base = ["--device", "cuda", "--synthetic_data", "--n_iters", "1", "--checkpoints", workdir]
     counts = {}
     with _save_gates_open(), contextlib.chdir(workdir):
-        for phase, module, flags, predicted, check in DEFENSE_PHASES:
+        for phase, module, flags, predicted, check in phases:
             t0 = time.perf_counter()
             main_fn = importlib.import_module(f"combat_tpu_torch.{module}").main
             tk.reset_launch_counts()
@@ -1829,6 +2002,16 @@ def main(argv=None) -> int:
 
         # 5x-5z. the defenses on the port's own checkpoints, each with its own counts
         defense_launches = run_defense_phases(workdir)
+
+        # 5za-5zc. the extended zoo, each with its own counts
+        zoo_extra_launches = run_phases(workdir, ZOO_EXTRA_PHASES)
+        efficientnet_stops(workdir)
+        zoo_extra_launches.update(run_defense_phases(workdir, ZOO_EXTRA_DETECTOR_PHASES))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zoo_extra_launches.update(run_phases(workdir, ZOO_EXTRA_224_PHASES))
+        print(f"  5zc imagenet10 mobilenet clean and generator: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if any(aten_launches.values()):
@@ -1852,8 +2035,9 @@ def main(argv=None) -> int:
     print(f"  launches in phases 5r-5t (bfloat16, each as predicted): {json.dumps(bf16_launches)}", flush=True)
     print(f"  launches in phases 5u-5w (each as predicted): {json.dumps(zoo_launches)}", flush=True)
     print(f"  launches in phases 5x-5z (each as predicted): {json.dumps(defense_launches)}", flush=True)
+    print(f"  launches in phases 5za-5zc (each as predicted): {json.dumps(zoo_extra_launches)}", flush=True)
     later = (*variant_launches.values(), *large_launches.values(), *bf16_launches.values(), *zoo_launches.values(),
-             *defense_launches.values())
+             *defense_launches.values(), *zoo_extra_launches.values())
     launches = {k: n + sum(per_phase[ph][k] for ph in expect) + sum(c[k] for c in later)
                 for k, n in launches.items()}
     missing = [k for k, n in launches.items() if n == 0]
@@ -1866,7 +2050,9 @@ def main(argv=None) -> int:
     variant_step_agreement()
     large_step_agreement()
     zoo_step_agreement()
+    zoo_extra_step_agreement()
     detector_step_agreement()
+    efficientnet_detector_step_agreement()
     bf16_step_agreement()
     _phase("6 card vs CPU step", t0)
 

@@ -26,10 +26,19 @@ with ``np.asarray`` first); the output is a ``state_dict`` of CPU tensors:
   * a JAX block named ``<stage>_<i>`` (``layer1_0``, ``dense2_3``) is the
     port's ``<stage>.<i>``; a projection shortcut's ``shortcut_conv`` and
     ``shortcut_bn`` are ``shortcut.0`` and ``shortcut.1``
+  * the extended zoo (``models/zoo_extra.py``) and the auxiliary networks
+    (``models/misc.py``) keep the Flax names, so each layer's key is its
+    Flax path joined by dots (:func:`_named`); a grouped conv's (kH, kW,
+    I / groups, O) kernel becomes (O, I / groups, kH, kW) by the same
+    transpose
+  * the AE decoder's ``ConvTranspose`` (kH, kW, I, O) kernel, which Flax
+    applies unflipped, becomes ``ConvTranspose2d``'s (I, O, kH, kW) weight
+    flipped in both spatial axes
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -158,6 +167,113 @@ def _netc_mnist(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _in_channels(p: Tree) -> int:
+    return int(np.shape(p["kernel"])[-2])
+
+
+def _last(params: Tree, prefix: str) -> str:
+    """The last of the keys ``<prefix><i>`` / ``<prefix><s>_<i>`` by their numbers."""
+    keys = [k for k in params if k.startswith(prefix) and k[len(prefix):][:1].isdigit()]
+    return max(keys, key=lambda k: tuple(int(v) for v in re.findall(r"\d+", k[len(prefix):])))
+
+
+def _named(params: Tree, stats: Tree, heads: Dict[str, int]) -> Dict[str, torch.Tensor]:
+    """Every conv, dense and BatchNorm of a model whose port modules carry
+    the Flax names; ``heads`` maps each dense that reads a flattened map to
+    the map's channels."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, tree: Tree, st: Tree) -> None:
+        for name, p in tree.items():
+            key = f"{prefix}{name}"
+            if "kernel" in p:
+                (_conv(sd, key, p) if np.ndim(p["kernel"]) == 4 else _dense(sd, key, p, channels=heads.get(key, 0)))
+            elif "scale" in p:
+                _bn(sd, key, p, st[name])
+            else:
+                walk(f"{key}.", p, st.get(name, {}))
+
+    walk("", params, stats)
+    return sd
+
+
+def _lenet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {"fc1": _out_channels(params["Conv_1"])})
+
+
+def _mobilenet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    last = max(int(k[1:].split("_")[0]) for k in params if k.endswith("_pw"))
+    return _named(params, stats, {"linear": _out_channels(params[f"b{last}_pw"])})
+
+
+def _efficientnet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {})  # the head reads the spatial mean
+
+
+def _googlenet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    b5 = params["b5"]
+    return _named(params, stats, {"linear": sum(_out_channels(b5[b]) for b in ("b1", "b2b", "b3c", "b4"))})
+
+
+def _dpn(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    """The head reads the last block's input plus the last stage's dense
+    depth, which is the second block's input less the first's conv3 width."""
+    blocks = sorted((k for k in params if k.startswith("s3_")), key=lambda k: int(k.split("_")[1]))
+    if len(blocks) < 2:
+        raise ValueError("a DPN whose last stage has one block: its dense depth is not in the parameters")
+    depth = _in_channels(params[blocks[1]]["conv1"]) - _out_channels(params[blocks[0]]["conv3"])
+    return _named(params, stats, {"linear": _in_channels(params[blocks[-1]]["conv1"]) + depth})
+
+
+def _senet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {"linear": _out_channels(params[_last(params, "layer")]["conv2"])})
+
+
+def _resnext(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {"linear": _out_channels(params[_last(params, "layer")]["conv3"])})
+
+
+def _shufflenet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    """A stage's first block (stride 2) concatenates its input's pool."""
+    name = _last(params, "s")
+    block = params[name]
+    first = name.endswith("_0")
+    return _named(params, stats, {"linear": _out_channels(block["conv3"]) + (_in_channels(block["conv1"]) if first
+                                                                            else 0)})
+
+
+def _shufflenetv2(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {"linear": _out_channels(params["conv2"])})
+
+
+def _pnasnet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {"linear": _out_channels(params[_last(params, "cell")]["sep1"]["conv1"])})
+
+
+def _ae(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    sd = _named(params, stats, {})
+    for name, p in params["decoder"].items():
+        if name.endswith("_conv"):
+            sd[f"decoder.{name}.weight"] = _t(np.transpose(p["kernel"], (2, 3, 0, 1))[:, :, ::-1, ::-1].copy())
+    return sd
+
+
+def _netc_gtsrb(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {"linear1": _out_channels(params["block6"]["conv"])})
+
+
+def _netc_mnist2(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {"linear6": _out_channels(params["layer4"]["conv1"])})
+
+
+def _netc_mnist3(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {"linear6": _out_channels(params["layer3"]["conv1"])})
+
+
+def _netc_celeba(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    return _named(params, stats, {"linear12": _out_channels(params["conv3"])})
+
+
 def _unet(params: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for part in ("enc", "dec"):
@@ -214,6 +330,21 @@ _CONVERTERS = {
     "simplevit": _vit,
     "vit_timm": _vit,
     "netc_mnist": _netc_mnist,
+    "lenet": _lenet,
+    "mobilenet": _mobilenet,
+    "efficientnet": _efficientnet,
+    "googlenet": _googlenet,
+    "dpn": _dpn,
+    "senet": _senet,
+    "resnext": _resnext,
+    "shufflenet": _shufflenet,
+    "shufflenetv2": _shufflenetv2,
+    "pnasnet": _pnasnet,
+    "ae": _ae,
+    "netc_gtsrb": _netc_gtsrb,
+    "netc_mnist2": _netc_mnist2,
+    "netc_mnist3": _netc_mnist3,
+    "netc_celeba": _netc_celeba,
     "resnet": _resnet,
     "unet": _unet,
     "unet_bk": _unet,

@@ -107,13 +107,14 @@ def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> nn.Modu
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (momentum 0.1, eps 1e-5, affine) whose running
-    variance takes the biased batch variance, matching the JAX package.
-    It normalizes a bfloat16 or float16 input in float32 and returns
-    float32; a float64 model (a test's reference) stays float64."""
+    """``nn.BatchNorm2d`` (momentum 0.1 unless given, eps 1e-5, affine)
+    whose running variance takes the biased batch variance, matching the JAX
+    package; torch's ``momentum`` is 1 minus Flax's.  It normalizes a
+    bfloat16 or float16 input in float32 and returns float32; a float64
+    model (a test's reference) stays float64."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, momentum: float = 0.1):
+        super().__init__(num_features, eps=1e-5, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype != torch.float64:

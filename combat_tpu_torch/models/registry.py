@@ -1,18 +1,18 @@
 """Model factories (the port of ``combat_tpu/models/registry.py``).
 
 Every ``--model`` name of the JAX registry's ``CLASSIFIERS`` builds for any
-dataset, as there, except the 13 of ``zoo_extra.py`` (LeNet, MobileNetV1,
-EfficientNetB0, GoogLeNet, DPN, SENet, ShuffleNets, ResNeXts, PNASNets),
-which raise ``NotImplementedError`` naming the later slice that ports them.
-Each dataset has its default (mnist's is ``NetC_MNIST``).  ``--F_model``
-takes ``original`` (and ``original_holdout``), ``original_dropout``,
-``original_dropout_ensemble`` (dropout live in eval mode) or any classifier
-name, built with two classes.
+dataset, as there, with its head sized from the dataset's map; where the
+JAX model cannot be built at a size (a pool that leaves no map), neither can
+the port's.  Each dataset has its default (mnist's is ``NetC_MNIST``).
+``--F_model`` takes ``original`` (and ``original_holdout``),
+``original_dropout``, ``original_dropout_ensemble`` (dropout live in eval
+mode) or any classifier name, built with two classes.
 
 Every model is built in ``cfg.compute_dtype`` (``layers.py``), the frozen
 clean model and the detector too, as every module of the JAX package reads
 its compute dtype; the layers the JAX package keeps in float32 (the ViTs,
-NetC_MNIST's convolutions) are ``torch.nn``'s own and stay float32.
+the convolutions it builds without ``dtype=``) are ``torch.nn``'s own and
+stay float32.
 """
 
 from __future__ import annotations
@@ -39,8 +39,21 @@ from .preact_resnet import preact_resnet10, preact_resnet18, preact_resnet34
 from .resnet import resnet18, resnet34
 from .vgg import vgg
 from .vit import simplevitsmall8, vit, vitsmall
-
-_LATER = "is not ported yet: the classifiers of the JAX package's zoo_extra.py are a later slice of the port"
+from .zoo_extra import (
+    EfficientNetB0,
+    GoogLeNet,
+    LeNet,
+    MobileNetV1,
+    SENet18,
+    ShuffleNetG2,
+    ShuffleNetV2,
+    dpn26,
+    dpn92,
+    pnasnet_a,
+    pnasnet_b,
+    resnext29_2x64d,
+    resnext29_32x4d,
+)
 
 # --model names (the JAX registry's CLASSIFIERS): (num_classes, input_size, in_channels) -> module
 CLASSIFIERS = {
@@ -58,18 +71,27 @@ CLASSIFIERS = {
     "vit": vit,
     "simplevitsmall8": simplevitsmall8,
     "vitsmall": vitsmall,
+    # the latent experiment zoo (reference classifier_models/{lenet,mobilenet,...}.py)
+    "lenet": LeNet,
+    "mobilenet": MobileNetV1,
+    "efficientnetb0": EfficientNetB0,
+    "googlenet": GoogLeNet,
+    "dpn26": dpn26,
+    "dpn92": dpn92,
+    "senet18": SENet18,
+    "shufflenetg2": ShuffleNetG2,
+    "shufflenetv2": ShuffleNetV2,
+    "resnext29_2x64d": resnext29_2x64d,
+    "resnext29_32x4d": resnext29_32x4d,
+    "pnasneta": pnasnet_a,
+    "pnasnetb": pnasnet_b,
 }
-# the JAX registry's names from zoo_extra.py, not ported yet
-LATER_CLASSIFIERS = ("lenet", "mobilenet", "efficientnetb0", "googlenet", "dpn26", "dpn92", "senet18",
-                     "shufflenetg2", "shufflenetv2", "resnext29_2x64d", "resnext29_32x4d", "pnasneta", "pnasnetb")
 # each dataset's default (combat_tpu/models/registry.py::get_classifier)
 _DEFAULTS = {"cifar10": preact_resnet18, "gtsrb": preact_resnet18, "celeba": resnet18, "imagenet10": resnet18,
              "mnist": NetC_MNIST}
 
 
 def _named_classifier(name: str, num_classes: int, cfg: Config) -> nn.Module:
-    if name in LATER_CLASSIFIERS:
-        raise NotImplementedError(f"classifier {name!r} {_LATER}")
     if name not in CLASSIFIERS:
         raise ValueError(f"unknown classifier {name!r}; options: {sorted(CLASSIFIERS)}")
     return CLASSIFIERS[name](num_classes, cfg.input_height, cfg.input_channel)
@@ -112,7 +134,7 @@ def get_frequency_detector(cfg: Config) -> nn.Module:
         return _in_dtype(cfg, frequency_model_dropout(2, cfg.F_dropout, h, c))
     if name == "original_dropout_ensemble":
         return _in_dtype(cfg, FrequencyModelDropoutEnsemble(2, cfg.F_dropout, cfg.F_num_ensemble, h, c))
-    if name in CLASSIFIERS or name in LATER_CLASSIFIERS:
+    if name in CLASSIFIERS:
         return _in_dtype(cfg, _named_classifier(name, 2, cfg))
     raise ValueError(f"unknown frequency detector {name!r}")
 

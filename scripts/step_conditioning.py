@@ -1,4 +1,4 @@
-"""How far one full-width alternated step (bs 16, cifar10, UNet nf 64, the
+"""How far one full-width alternated step (bs 16 or ``--bs``, cifar10, UNet nf 64, the
 dropout-ensemble detector) moves the updated parameters when its input moves
 by Gaussian noise of a given size, on the CPU in float32, for each classifier
 named (the surrogate C and the clean model).
@@ -29,16 +29,16 @@ from combat_tpu_torch.train import TrainState, draw_alternated, freeze, make_alt
 from combat_tpu_torch.train import multistep_lr  # noqa: E402
 
 
-def step_state(model: str, noise: float, seed: int = 11):
+def step_state(model: str, noise: float, seed: int = 11, bs: int = 16):
     """C's and G's state dicts after one step on the seeded batch plus
     ``noise`` times a fixed Gaussian draw."""
     cfg = apply_dataset_preset(Config(device="cpu", model=model, F_model="original_dropout_ensemble"))
     torch.manual_seed(seed)
     weights = [get_classifier(cfg), get_generator(cfg), get_classifier(cfg), get_frequency_detector(cfg)]
     gen = torch.Generator().manual_seed(seed + 1)
-    x = torch.rand((16, 3, 32, 32), generator=gen) * 2 - 1
-    y = torch.arange(16) % 4
-    draws = draw_alternated(cfg, 16, gen, "cpu", freeze(copy.deepcopy(weights[3])))
+    x = torch.rand((bs, 3, 32, 32), generator=gen) * 2 - 1
+    y = torch.arange(bs) % 4
+    draws = draw_alternated(cfg, bs, gen, "cpu", freeze(copy.deepcopy(weights[3])))
     x = x + noise * torch.randn(x.shape, generator=torch.Generator().manual_seed(99))
     C, G, cm, nf = (copy.deepcopy(m) for m in weights)
     sched = multistep_lr(0.01, (100,), 0.1, 10)
@@ -51,13 +51,14 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("models", nargs="+")
     parser.add_argument("--noise", type=float, nargs="+", default=[1e-6, 1e-5])
+    parser.add_argument("--bs", type=int, default=16)
     args = parser.parse_args(argv)
     for model in args.models:
-        base = step_state(model, 0.0)
+        base = step_state(model, 0.0, bs=args.bs)
         for noise in args.noise:
-            moved = step_state(model, noise)
+            moved = step_state(model, noise, bs=args.bs)
             worst, name = max((float((moved[k] - v).abs().max()), k) for k, v in base.items() if v.is_floating_point())
-            print(f"{model}: input noise {noise:g} moves {name} by {worst:.3e}", flush=True)
+            print(f"{model} (bs {args.bs}): input noise {noise:g} moves {name} by {worst:.3e}", flush=True)
 
 
 if __name__ == "__main__":

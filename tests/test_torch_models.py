@@ -89,7 +89,7 @@ def test_conversion_covers_every_port_tensor():
         _, variables, port = _pair(kind)
         assert set(from_jax_params(variables, kind)) == set(port.state_dict())
     with pytest.raises(ValueError, match="unknown model kind"):
-        from_jax_params({"params": {}}, "lenet")
+        from_jax_params({"params": {}}, "alexnet")
 
 
 def test_frequency_head_flatten_is_permuted():
@@ -125,22 +125,30 @@ def test_preact_hooks():
     assert not torch.allclose(perturbed, logits)
 
 
-def test_registry_raises_for_later_slices():
-    """Only the classifiers of the JAX package's ``zoo_extra.py`` are left to
-    a later slice, as ``--model`` and as ``--F_model``; the names this test
-    once held there (vgg16, mobilenetv2, mnist's default, the dropout
-    detector) build."""
+def test_registry_has_every_jax_name():
+    """The port's ``CLASSIFIERS`` holds the JAX registry's names, no more
+    and no fewer; the extended zoo's build as ``--model`` and as
+    ``--F_model`` (lenet, dpn92, pnasneta), as the names this test once
+    held out of the registry (vgg16, mobilenetv2, mnist's default, the
+    dropout detector) do."""
+    from combat_tpu.models.registry import CLASSIFIERS as JAX_CLASSIFIERS
+
     from combat_tpu_torch.config import Config, apply_dataset_preset
     from combat_tpu_torch.models import (
+        CLASSIFIERS,
+        DPN,
         FrequencyModel,
+        LeNet,
         MobileNetV2,
         NetC_MNIST,
+        PNASNet,
         VGG,
         get_classifier,
         get_frequency_detector,
         get_generator,
     )
 
+    assert set(CLASSIFIERS) == set(JAX_CLASSIFIERS)
     cfg = apply_dataset_preset(Config())
     assert isinstance(get_classifier(cfg), PreActResNet)
     assert isinstance(get_generator(cfg), UnetGenerator)
@@ -149,13 +157,10 @@ def test_registry_raises_for_later_slices():
     assert isinstance(get_classifier(cfg.replace(model="mobilenetv2")), MobileNetV2)
     assert isinstance(get_classifier(apply_dataset_preset(Config(dataset="mnist"))), NetC_MNIST)
     assert get_frequency_detector(cfg.replace(F_model="original_dropout")).dropout.always_on
-    for make in (
-        lambda: get_classifier(cfg.replace(model="lenet")),
-        lambda: get_classifier(cfg.replace(model="dpn92")),
-        lambda: get_frequency_detector(cfg.replace(F_model="pnasneta")),
-    ):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            make()
+    assert isinstance(get_classifier(cfg.replace(model="lenet")), LeNet)
+    assert isinstance(get_classifier(cfg.replace(model="dpn92")), DPN)
+    detector = get_frequency_detector(cfg.replace(F_model="pnasneta"))
+    assert isinstance(detector, PNASNet) and detector.linear.out_features == 2
 
 
 @pytest.mark.parametrize("dataset", ["celeba", "mnist"])

@@ -1,6 +1,7 @@
 """The rest of the model registry: every ``--model`` name outside the JAX
 package's ``zoo_extra.py``, mnist's default and the detector variants,
-against the JAX models.
+against the JAX models (``zoo_extra.py``'s names and ``misc.py``'s other
+networks: ``tests/test_torch_zoo_extra_models.py``).
 
 Structure at full width without compiling: each port model's parameter
 count equals the Flax model's (``jax.eval_shape`` of its ``init``) at

@@ -21,10 +21,10 @@ Phases, each printing one line with its seconds:
      the projector P and two bounds (with the products on the tensor cores
      in three TF32 passes, as the kernels run them, and in float32 FMA),
      with their traced device time summed over each chain's launches and
-     split into products, K1's one-pass blur and K2's band passes (the
-     ``h224`` entry of each kernel's row); the tiled kernels are held at
-     257 and 300 px too, where the products read the projector's depth in
-     windows;
+     split into products, K1's one-pass blur and K2's one-pass adjoint
+     blur, each pass beside its own byte bound (the ``h224`` entry of each
+     kernel's row); the tiled kernels are held at 257 and 300 px too, where
+     the products read the projector's depth in windows;
   3. ``train_clean_classifier`` at full width (PreActResNet18, bs 128,
      1024 synthetic images: 8 steps, then eval);
   4. ``train_generator`` on that checkpoint, fused trigger (K1/K2): 8
@@ -459,8 +459,9 @@ def check_tiled() -> dict:
     against their plain versions: at 224 px (96 planes, imagenet10's bs 32),
     at H = 100 (not a multiple of the 64-wide tile; 383 planes), and at 257
     and 300 px, where the products read the projector's depth in windows of
-    224.  K1/K2 forward and backward with 3 and 5 taps (sigma 0.9: B^T !=
-    B), K3 forward and through autograd.  Returns the largest error of
+    224.  K1/K2 forward and backward with 3, 5 and 9 taps (sigma 0.9: B^T !=
+    B; 9 taps reach past one 8-tap chunk of the blur's passes), K3 forward
+    and through autograd.  Returns the largest error of
     each."""
     import torch
 
@@ -473,7 +474,7 @@ def check_tiled() -> dict:
         x, noise, g = (t[:planes] for t in _trigger_inputs(h, seed=h))
         D, M = tk.trigger_operands(h, RATIO, "cuda")
         Dc = tk.truncated_dct(h, RATIO, "cuda")
-        for k in (3, 5):
+        for k in (3, 5, 9):
             taps = gaussian_kernel_1d(k, 0.9, device="cuda")
             B = blur_matrix(taps, h)
             out, u = tk.fused_trigger_fwd(x, noise, taps, Dc, NOISE_RATE)
@@ -505,8 +506,10 @@ def time_tiled() -> dict:
     products, TF32 off), with its device time from a profiler trace summed
     over the chain's launches and split by part, and two bounds: with the
     products on the tensor cores in three TF32 passes (``bound_ms``, what
-    the kernels run) and in float32 FMA (``bound_f32_fma_ms``).  Returns a
-    dict per kernel."""
+    the kernels run) and in float32 FMA (``bound_f32_fma_ms``); K1's blur
+    and K2's adjoint blur also beside their own byte bound (``pass_bound_us``:
+    the planes each pass reads and writes once, two for the blur, three for
+    the adjoint).  Returns a dict per kernel."""
     import torch
 
     from combat_tpu_torch.ops import trigger_kernels as tk
@@ -556,6 +559,7 @@ def time_tiled() -> dict:
     blur = 2 * (2 * h * h * taps.numel())
     plane_bytes, mat_bytes = planes * h * h * 4, h * h * 4
     trigger_bytes = 4 * plane_bytes + mat_bytes + taps.numel() * 4
+    passes = {"fused_trigger_fwd": ("blur", 2), "fused_trigger_bwd": ("adjoint", 3)}  # the pass, arrays it moves
     work = {  # (bytes, products' operations, other operations)
         "fused_trigger_fwd": (trigger_bytes, lowpass * planes, (blur + 4 * h * h) * planes),
         "fused_trigger_bwd": (trigger_bytes, lowpass * planes, (blur + 3 * h * h) * planes),
@@ -570,6 +574,13 @@ def time_tiled() -> dict:
         out[name] = {"planes": planes, "H": h, "ms": _event_ms(kernel), "traced_us": traced, "bound_ms": bound_ms,
                      "bound_by": bound_by, "bound_f32_fma_ms": bound_f32_ms, "plain_ms": _event_ms(plain),
                      "library_ms": _event_ms(lib)}
+        if name in passes:
+            part, n_planes = passes[name]
+            out[name]["pass_bound_us"] = {part: n_planes * plane_bytes / HBM_BYTES_PER_S * 1e6}
+            us = traced.get(part)
+            print(f"  {name}'s {part} pass: traced " + (f"{us:.2f} us" if us is not None else "not measured")
+                  + f", its byte bound {out[name]['pass_bound_us'][part]:.2f} us ({n_planes} arrays of "
+                  f"{plane_bytes / 1e6:.2f} MB)", flush=True)
         print(f"  {name} at {h} px, {planes} planes: {out[name]['ms']:.4f} ms (traced {traced}; plain "
               f"{out[name]['plain_ms']:.4f}, library {out[name]['library_ms']:.4f}, bound {bound_ms:.4f} by "
               f"{bound_by} with 3xTF32 products, {bound_f32_ms:.4f} in float32 FMA)", flush=True)
@@ -579,8 +590,9 @@ def time_tiled() -> dict:
 def _traced_chain_us(fn, reps: int = 20) -> dict:
     """Device time (us) of one call of ``fn``, a tiled kernel's chain of
     launches, from a ``torch.profiler`` trace of ``reps`` calls: the sum over
-    its launches, and the share of the products (``product_kernel``), K1's
-    one-pass blur (``blur_kernel``) and the band passes (the rest)."""
+    its launches, and the share of each part: the products
+    (``product_kernel``), K1's one-pass blur (``blur_kernel``) and K2's
+    one-pass adjoint blur (``adjoint_kernel``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -590,11 +602,13 @@ def _traced_chain_us(fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    parts = {"product": 0.0, "blur": 0.0, "band": 0.0}
+    parts = {"product": 0.0, "blur": 0.0, "adjoint": 0.0}
     n = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and "tiled::" in e.name:
-            part = "product" if "product_kernel" in e.name else "blur" if "blur_kernel" in e.name else "band"
+            part = next((p for p in parts if f"{p}_kernel" in e.name), None)
+            if part is None:
+                raise SystemExit(f"a tiled launch of no known part: {e.name}")
             parts[part] += e.time_range.elapsed_us()
             n += 1
     if not n:

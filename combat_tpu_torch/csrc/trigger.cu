@@ -75,8 +75,8 @@
 //
 // Planes above 64 px (imagenet10's 224) take the tiled kernels of
 // trigger_tiled.cuh: the same three functions as chains of batched
-// tensor-core products with P (three TF32 passes), K1's blur in one pass and
-// K2's adjoint band passes, each logical kernel one entry point
+// tensor-core products with P (three TF32 passes), K1's blur and K2's
+// adjoint blur each in one pass, each logical kernel one entry point
 // (combat_*_tiled) and one wrapper call.
 //
 // Plain C interface, loaded with ctypes; every entry point returns
@@ -546,24 +546,34 @@ cudaError_t product(const float* A, const float* Ps, float* C, const float* adde
   return cudaGetLastError();
 }
 
+// The grid of blur_kernel and adjoint_kernel: one block a 56 x 32 output tile.
+cudaError_t blur_grid(int planes, int H, int& tiles_i, int& tiles_j, unsigned& blocks) {
+  tiles_i = (H + tiled::kBlurRows - 1) / tiled::kBlurRows;
+  tiles_j = (H + tiled::kBlurCols - 1) / tiled::kBlurCols;
+  const long long n = static_cast<long long>(tiles_i) * tiles_j * planes;
+  if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  blocks = static_cast<unsigned>(n);
+  return cudaSuccess;
+}
+
 // out = B clip(u, -1, 1) B^T (tiled::blur_kernel).
 cudaError_t blur(const float* u, float* out, const float* taps, int planes, int H, int k, cudaStream_t stream) {
-  const int tiles_i = (H + tiled::kBlurRows - 1) / tiled::kBlurRows;
-  const int tiles_j = (H + tiled::kBlurCols - 1) / tiled::kBlurCols;
-  const long long blocks = static_cast<long long>(tiles_i) * tiles_j * planes;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  tiled::blur_kernel<<<static_cast<unsigned>(blocks), tiled::kBlurThreads, 0, stream>>>(u, out, taps, H, k, tiles_i,
-                                                                                       tiles_j);
+  int tiles_i, tiles_j;
+  unsigned blocks;
+  const cudaError_t err = blur_grid(planes, H, tiles_i, tiles_j, blocks);
+  if (err != cudaSuccess) return err;
+  tiled::blur_kernel<<<blocks, tiled::kBlurThreads, 0, stream>>>(u, out, taps, H, k, tiles_i, tiles_j);
   return cudaGetLastError();
 }
 
-// K2's adjoint band pass (tiled::band_kernel), one thread an output element.
-template <bool Rows>
-cudaError_t band(const float* src, float* dst, const float* taps, const float* mask, int planes, int H, int k,
-                 cudaStream_t stream) {
-  const size_t total = static_cast<size_t>(planes) * H * H;
-  const unsigned blocks = static_cast<unsigned>((total + tiled::kBlurThreads - 1) / tiled::kBlurThreads);
-  tiled::band_kernel<Rows><<<blocks, tiled::kBlurThreads, 0, stream>>>(src, dst, taps, mask, H, k, total);
+// g_x = (B^T g B) * 1{-1 <= u <= 1} (tiled::adjoint_kernel).
+cudaError_t adjoint(const float* g, const float* u, float* gx, const float* taps, int planes, int H, int k,
+                    cudaStream_t stream) {
+  int tiles_i, tiles_j;
+  unsigned blocks;
+  const cudaError_t err = blur_grid(planes, H, tiles_i, tiles_j, blocks);
+  if (err != cudaSuccess) return err;
+  tiled::adjoint_kernel<<<blocks, tiled::kBlurThreads, 0, stream>>>(g, u, gx, taps, H, k, tiles_i, tiles_j);
   return cudaGetLastError();
 }
 
@@ -614,9 +624,9 @@ int combat_fused_trigger_fwd_tiled(const void* x, const void* nz, const void* Ps
   return static_cast<int>(err);
 }
 
-// K2 above 64 px: R = g B; g_u = (B^T R) * 1{-1 <= u <= 1}, written as g_x;
-// W = (g_u P)^T; g_n = noise_rate * (W P)^T.  `Ps` as in K1; `ws` holds R,
-// then W.
+// K2 above 64 px: g_u = (B^T g B) * 1{-1 <= u <= 1} in one pass, written as
+// g_x; W = (g_u P)^T; g_n = noise_rate * (W P)^T.  `Ps` as in K1; `ws` holds
+// W.
 int combat_fused_trigger_bwd_tiled(const void* g, const void* u, const void* Ps, const void* taps, void* gx,
                                    void* gn, void* ws, int planes, int H, int c, int k, float noise_rate,
                                    void* stream) {
@@ -625,8 +635,7 @@ int combat_fused_trigger_bwd_tiled(const void* g, const void* u, const void* Ps,
   const float *fg = static_cast<const float*>(g), *fu = static_cast<const float*>(u),
               *fP = static_cast<const float*>(Ps), *ft = static_cast<const float*>(taps);
   float *fgx = static_cast<float*>(gx), *fgn = static_cast<float*>(gn), *fw = static_cast<float*>(ws);
-  cudaError_t err = band<false>(fg, fw, ft, nullptr, planes, H, k, st);
-  if (err == cudaSuccess) err = band<true>(fw, fgx, ft, fu, planes, H, k, st);
+  cudaError_t err = adjoint(fg, fu, fgx, ft, planes, H, k, st);
   if (err == cudaSuccess) err = product(fgx, fP, fw, nullptr, planes, H, 1.f, 0.f, st);
   if (err == cudaSuccess) err = product(fw, fP, fgn, nullptr, planes, H, noise_rate, 0.f, st);
   return static_cast<int>(err);

@@ -14,7 +14,7 @@
 //   K3  W = (X P)^T;           out = (W P)^T                      = P X P
 //   K1  W = (N P)^T;           u = x + noise_rate * ((W P)^T + shift)   (written)
 //       out = B clip(u, -1, 1) B^T                           (one blur pass)
-//   K2  R = g B;               g_u = (B^T R) * 1{-1 <= u <= 1}      (g_x)
+//   K2  g_u = (B^T g B) * 1{-1 <= u <= 1}               (g_x; one adjoint pass)
 //       W = (g_u P)^T;         g_n = noise_rate * (W P)^T
 //
 // P Y P is the masked low-pass D^T((D y D^T) o M)D once the DC passes the
@@ -79,12 +79,17 @@
 // straight to out.  u is read once, out written once; R never reaches
 // device memory.  The taps are taken in chunks of 8 each way, so any k with
 // k / 2 < H fits in 18 KB of shared memory (the CLIs use k = 3).  K2's
-// adjoint band passes (band_kernel) stay two launches through the workspace:
-//   adjoint  v[q] = sum_t taps[t] (s[q + p - t]
-//                    + [q > 0] s[p - t - q] + [q < H-1] s[2(H-1) - q + p - t])   (B^T s)
+// (B^T g B) * 1{-1 <= u <= 1} is one kernel of the same shape
+// (adjoint_kernel).  B^T is not the flipped stencil at the reflect borders:
+// along one axis
+//   (B^T s)[q] = sum_t taps[t] (s[q + p - t]
+//                 + [q > 0] s[p - t - q] + [q < H-1] s[2(H-1) + p - t - q])
 // each term only where its index lies in [0, H): the three ways refl can
-// land on q.  B^T is not the flipped stencil at the reflect borders, and
-// this gather is exact there.
+// land on q.  So a tile stages up to three windows of the zero-padded
+// source a tap chunk each way, the direct one and, near the plane's edges,
+// the two mirrored ones (read backwards), with no reflected indices; the
+// mask's u is read once and g_x written once, so the pass moves 3 planes
+// (57.8 MB at 224 px, bs 32: 17.3 us at 3.35 TB/s).
 //
 // Bytes at 224 px, bs 32: K1/K2 move 77.1 MB (0.023 ms at 3.35 TB/s), K3
 // 38.5 MB; so all three are bound by the tensor cores' operations.
@@ -419,40 +424,170 @@ __global__ void __launch_bounds__(kBlurThreads) blur_kernel(const float* __restr
   }
 }
 
-// K2's adjoint band passes along rows (Rows: the gather runs over i, B^T s)
-// or columns (s B), over `planes` H x H planes; one thread per output
-// element.  `mask`, when given, zeroes the outputs where mask lies outside
-// [-1, 1] (K2's 1{-1 <= u <= 1}).  The source is read from L2/L1 (no shared
-// memory), so any k with k / 2 < H works.
-template <bool Rows>
-__global__ void __launch_bounds__(kBlurThreads) band_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                                                            const float* __restrict__ taps,
-                                                            const float* __restrict__ mask, int H, int k,
-                                                            size_t total) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const size_t n = static_cast<size_t>(H) * H, base = idx / n * n;
-  const int e = static_cast<int>(idx - base), i = e / H, j = e - i * H;
-  const int q = Rows ? i : j, p = k / 2;
-  // the source element at position r along the pass's axis
-  auto at = [&](int r) { return src[base + (Rows ? static_cast<size_t>(r) * H + j : static_cast<size_t>(i) * H + r)]; };
-  float acc = 0.f;
-  // Unrolled twice: as nvcc unrolls this loop by itself, the pair of passes
-  // took 105-106 us at 224 px and 96 planes on an H100, where a form nvcc
-  // unrolled otherwise took 88.5-88.8 (PERF.md).
-#pragma unroll 2
-  for (int t = 0; t < k; ++t) {
-    const float w = taps[t];
-    const int r1 = q + p - t, r2 = p - t - q, r3 = 2 * (H - 1) - q + p - t;
-    if (r1 >= 0 && r1 < H) acc = fmaf(w, at(r1), acc);
-    if (q > 0 && r2 >= 0 && r2 < H) acc = fmaf(w, at(r2), acc);
-    if (q < H - 1 && r3 >= 0 && r3 < H) acc = fmaf(w, at(r3), acc);
+// Where one side of the adjoint's fold reads, along one axis, for the
+// outputs [q0, q0 + n) and the taps [t0, t0 + nt), p = k / 2: staged index
+// w (0 <= w < n + nt - 1) holds the source at first + w (the direct side) or
+// first - w (the mirrored ones).  Output q0 + o takes tap t0 + c times staged
+// w = o + c, the direct side's taps reversed (tap t0 + nt - 1 - c):
+//   direct  s[q + p - t]                   first = q0 + p - t0 - nt + 1
+//   near    s[p - t - q],         q > 0      first = p - t0 - q0
+//   far     s[2(H-1) + p - t - q], q < H-1   first = 2(H-1) + p - t0 - q0
+// (the three e with refl(e) = q, e = m + t - p for the source m).
+constexpr int kSides = 3;
+
+__device__ __forceinline__ int side_first(int side, int q0, int t0, int nt, int p, int H) {
+  return side == 0 ? q0 + p - t0 - nt + 1 : side == 1 ? p - t0 - q0 : 2 * (H - 1) + p - t0 - q0;
+}
+
+// What one side does for a tap chunk: nothing (none of its `count` staged
+// sources lies in [0, H)), or its own pass, or, for a mirrored side whose
+// sources in the plane all lie in the direct side's window, a read of that
+// window in the direct pass (fold): at k <= 8 every mirrored side folds.
+enum SideWork { kNone, kPass, kFold };
+
+__device__ __forceinline__ SideWork side_work(int side, int first, int direct_first, int count, int H) {
+  const int lo = max(side == 0 ? first : first - (count - 1), 0);
+  const int hi = min(side == 0 ? first + count - 1 : first, H - 1);
+  if (lo > hi) return kNone;
+  return side != 0 && lo >= direct_first && hi < direct_first + count ? kFold : kPass;
+}
+
+// Whether output q takes the side at all: q = 0 and q = H - 1 count their own
+// term once.
+__device__ __forceinline__ bool side_takes(int side, int q, int H) {
+  return side == 0 || (side == 1 ? q > 0 : q < H - 1);
+}
+
+// K2's g_x = g_u = (B^T g B) * 1{-1 <= u <= 1} for every plane, in one pass;
+// a block owns one 56 x 32 output tile as blur_kernel does.  Along each axis
+// B^T folds three windows onto the outputs (side_first): for the row taps
+// [t0, t0 + nt) and each row side with a pass, it stages R, the column
+// adjoint of that side's rows, summed over the column taps' chunks and
+// sides from g's blocks copied into shared memory once each (zeros outside
+// the plane, no reflected indices); then the row pass adds R's taps to the
+// outputs that take the side.  A mirrored side that folds is read from the
+// direct side's buffer in the direct pass, backwards, so at k <= 8 every
+// tile runs one pass, as blur_kernel does; the edge tiles add the mirrored
+// reads.  (With every mirrored side a pass of its own, 2 passes an edge tile
+// and 4 a corner, the pass took 46.0 us at 224 px and 96 planes on an H100,
+// at the same four blocks an SM, against 40.1 with the folds; PERF.md.)
+// u is read once for the mask, g_x written once; R never reaches device
+// memory.  Any k with k / 2 < H.
+//
+// Four blocks an SM, so 64 registers a thread: left to itself nvcc gives
+// the pass 128 registers and two blocks an SM, and it took 57.9 us at 224
+// px and 96 planes on an H100 against 39.7; three blocks (80 registers)
+// took 51.4 us, five (48, spilling) 71.3 (PERF.md).  Copying g's block or
+// u's tile with cp.async in place of registers did not help (41-49 us).
+constexpr int kAdjointBlocksPerSM = 4;
+
+__global__ void __launch_bounds__(kBlurThreads, kAdjointBlocksPerSM)
+    adjoint_kernel(const float* __restrict__ g, const float* __restrict__ u, float* __restrict__ gx,
+                   const float* __restrict__ taps, int H, int k, int tiles_i, int tiles_j) {
+  __shared__ float S[kStagedRows][kStagedCols];
+  __shared__ float R[kStagedRows][kBlurCols];
+  const int per_plane = tiles_i * tiles_j;
+  const size_t plane = blockIdx.x / per_plane, n = static_cast<size_t>(H) * H;
+  const int tile = blockIdx.x % per_plane;
+  const int i0 = (tile / tiles_j) * kBlurRows, j0 = (tile % tiles_j) * kBlurCols;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, p = k / 2;
+  const int rows_out = min(kBlurRows, H - i0), j = j0 + lane;
+  const float* src = g + plane * n;
+  constexpr int kRowsPerWarp = kBlurRows / kBlurWarps;
+  float acc[kRowsPerWarp];
+#pragma unroll
+  for (int q = 0; q < kRowsPerWarp; ++q) acc[q] = 0.f;
+
+  for (int t0 = 0; t0 < k; t0 += kTapChunk) {
+    const int nt = min(kTapChunk, k - t0), staged = rows_out + nt - 1;
+    const int rd = side_first(0, i0, t0, nt, p, H);
+    for (int si = 0; si < kSides; ++si) {
+      const int ri = side_first(si, i0, t0, nt, p, H), di = si == 0 ? 1 : -1;
+      if (side_work(si, ri, rd, staged, H) != kPass) continue;
+      float r[kStagedPerWarp];  // this lane's column of R, rows warp + 8 q
+#pragma unroll
+      for (int q = 0; q < kStagedPerWarp; ++q) r[q] = 0.f;
+      for (int c0 = 0; c0 < k; c0 += kTapChunk) {
+        const int nc = min(kTapChunk, k - c0), width = kBlurCols + nc - 1;
+        const int cd = side_first(0, j0, c0, nc, p, H);
+        for (int sj = 0; sj < kSides; ++sj) {
+          const int cj = side_first(sj, j0, c0, nc, p, H), dj = sj == 0 ? 1 : -1;
+          if (side_work(sj, cj, cd, width, H) != kPass) continue;
+          float v[kStagedPerWarp][kColsPerLane];
+#pragma unroll
+          for (int q = 0; q < kStagedPerWarp; ++q) {
+            const int s = warp + q * kBlurWarps, row = ri + di * s;
+            const bool row_ok = s < staged && row >= 0 && row < H;
+#pragma unroll
+            for (int c = 0; c < kColsPerLane; ++c) {
+              const int w = lane + 32 * c, col = cj + dj * w;
+              v[q][c] = row_ok && w < width && col >= 0 && col < H ? __ldg(src + static_cast<size_t>(row) * H + col)
+                                                                   : 0.f;
+            }
+          }
+          __syncthreads();  // S is free
+#pragma unroll
+          for (int q = 0; q < kStagedPerWarp; ++q)
+#pragma unroll
+            for (int c = 0; c < kColsPerLane; ++c)
+              if (lane + 32 * c < kStagedCols) S[warp + q * kBlurWarps][lane + 32 * c] = v[q][c];
+          __syncthreads();
+          const bool takes = side_takes(sj, j, H);
+          for (int c = 0; c < nc; ++c) {
+            const float w = takes ? __ldg(taps + c0 + (sj == 0 ? nc - 1 - c : c)) : 0.f;
+#pragma unroll
+            for (int q = 0; q < kStagedPerWarp; ++q) r[q] = fmaf(w, S[warp + q * kBlurWarps][lane + c], r[q]);
+          }
+          if (sj != 0) continue;
+          for (int mj = 1; mj < kSides; ++mj) {  // the mirrored sides that fold into this window, backwards
+            const int first = side_first(mj, j0, c0, nc, p, H);
+            if (side_work(mj, first, cd, width, H) != kFold) continue;
+            const bool takes_m = side_takes(mj, j, H);
+            for (int c = 0; c < nc; ++c) {
+              const int idx = first - cd - lane - c;
+              const float w = takes_m && idx >= 0 && idx < width ? __ldg(taps + c0 + c) : 0.f;
+              const int at = min(max(idx, 0), kStagedCols - 1);
+#pragma unroll
+              for (int q = 0; q < kStagedPerWarp; ++q) r[q] = fmaf(w, S[warp + q * kBlurWarps][at], r[q]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kStagedPerWarp; ++q) R[warp + q * kBlurWarps][lane] = r[q];
+      __syncthreads();
+      for (int t = 0; t < nt; ++t) {
+        const float w = __ldg(taps + t0 + (si == 0 ? nt - 1 - t : t));
+#pragma unroll
+        for (int q = 0; q < kRowsPerWarp; ++q) {
+          const int ii = warp + q * kBlurWarps;
+          if (side_takes(si, i0 + ii, H)) acc[q] = fmaf(w, R[ii + t][lane], acc[q]);
+        }
+      }
+      for (int mi = 1; si == 0 && mi < kSides; ++mi) {  // the mirrored sides that fold into R, backwards
+        const int first = side_first(mi, i0, t0, nt, p, H);
+        if (side_work(mi, first, rd, staged, H) != kFold) continue;
+        for (int t = 0; t < nt; ++t) {
+          const float w = __ldg(taps + t0 + t);
+#pragma unroll
+          for (int q = 0; q < kRowsPerWarp; ++q) {
+            const int ii = warp + q * kBlurWarps, idx = first - rd - ii - t;
+            if (idx >= 0 && idx < staged && side_takes(mi, i0 + ii, H)) acc[q] = fmaf(w, R[idx][lane], acc[q]);
+          }
+        }
+      }
+      __syncthreads();  // R is free
+    }
   }
-  if (mask != nullptr) {
-    const float m = mask[idx];
-    acc = (m >= -1.f && m <= 1.f) ? acc : 0.f;
+  if (j >= H) return;
+#pragma unroll
+  for (int q = 0; q < kRowsPerWarp; ++q) {
+    const int ii = warp + q * kBlurWarps;
+    if (ii >= rows_out) continue;
+    const size_t at = plane * n + static_cast<size_t>(i0 + ii) * H + j;
+    const float m = __ldg(u + at);
+    gx[at] = m >= -1.f && m <= 1.f ? acc[q] : 0.f;
   }
-  dst[idx] = acc;
 }
 
 }  // namespace tiled

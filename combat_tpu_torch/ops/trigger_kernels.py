@@ -52,10 +52,11 @@ with the projector P are one tensor-core kernel, the batch's stacked rows
 times P stored transposed per plane (P is exactly symmetric, so
 P Z = (Z^T P)^T), in three TF32 passes that keep float32 accuracy
 (:func:`tf32_product` emulates them; the wrapper hands the kernel P split
-once, in the order its fragments read it); K1's blur is one pass through
-shared memory and K2's adjoint blur two band passes.  There they are bound by the
-tensor cores' operations (3 x 2 H^3 TF32 FMA a plane), not bytes.  Each
-wrapper call still counts one launch in :data:`LAUNCHES`.
+once, in the order its fragments read it); K1's blur and K2's adjoint
+blur with its clamp mask are each one pass through shared memory.  There
+they are bound by the tensor cores' operations (3 x 2 H^3 TF32 FMA a
+plane), not bytes.  Each wrapper call still counts one launch in
+:data:`LAUNCHES`.
 
 Beside each kernel: its plain PyTorch version, which keeps the JAX kernels'
 dense (D, M, B) form, is the CPU path and what ``chip_smoke.py`` compares the

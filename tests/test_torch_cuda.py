@@ -16,7 +16,9 @@ the products read the projector's depth in windows, and one alternated step at
 design: K3 at 224 px within 2e-5 of its plain version, which three TF32
 passes meet and one (~1e-3) does not; and K1's one-pass blur against the
 dense B clip(u) B^T on K1's own u, within 1e-5 (a k-tap sum of values in
-[-1, 1]; the low-pass's rounding does not enter).
+[-1, 1]; the low-pass's rounding does not enter); and K2's one-pass
+adjoint blur and clamp mask against the dense (B^T g B) * 1{-1 <= u <= 1},
+within 1e-5, up to 199 taps.
 """
 
 import pytest
@@ -162,11 +164,11 @@ def test_aten_route_runs_any_size_without_kernels(dev):
                                             (72, 7, 1.0), (257, 96, RATIO), (300, 95, RATIO)],
                          ids=["H65", "H100", "H224", "H100-c0", "H72-c=H", "H257", "H300"])
 def test_tiled_fused_trigger_kernels_match_plain(dev, h, planes, ratio, k):
-    """K1/K2 above 64 px (the tiled chain: products with P, band passes)
-    against the plain versions: H not a multiple of the 64-wide tile (65,
-    100), imagenet10's 224 at bs 32, the cutoff edges c = 0 and c = H, and
-    H above 224, where the products read P's depth in windows of 224 (257,
-    300); one launch counted a call."""
+    """K1/K2 above 64 px (the tiled chain: products with P, K1's blur, K2's
+    adjoint blur) against the plain versions: H not a multiple of the
+    64-wide tile (65, 100), imagenet10's 224 at bs 32, the cutoff edges c = 0
+    and c = H, and H above 224, where the products read P's depth in windows
+    of 224 (257, 300); one launch counted a call."""
     x, noise, g = _planes(dev, planes, h)
     taps = gaussian_kernel_1d(k, 0.9, device=dev)
     B = blur_matrix(taps, h)
@@ -231,6 +233,28 @@ def test_tiled_blur_matches_the_dense_blur(dev, h, planes, k):
     B = blur_matrix(taps, h)
     out, u = tk.fused_trigger_fwd(x, noise, taps, tk.truncated_dct(h, RATIO, str(dev)), NOISE_RATE)
     torch.testing.assert_close(out, B @ u.clamp(-1.0, 1.0) @ B.T, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,planes,k", [(h, planes, k) for h, planes in ((65, 383), (100, 383), (224, 95), (257, 33),
+                                                                        (300, 31)) for k in (3, 5, 9, 17)]
+                         + [(224, 95, 199)])
+def test_tiled_adjoint_blur_matches_the_dense_adjoint(dev, h, planes, k):
+    """K2's one-pass adjoint blur and clamp mask (the g_x of the tiled
+    chain) against the dense (B^T g B) * 1{-1 <= u <= 1}: sigma 0.9, where
+    B^T != B at the reflect borders; H not a multiple of the 56 x 32 tile;
+    taps past one 8-tap chunk (9, 17) and a halo wider than a tile (199);
+    ragged plane counts; a u that crosses both clamp edges and holds -1 and
+    1 exactly."""
+    _, _, g = _planes(dev, planes, h)
+    gen = torch.Generator(device=dev).manual_seed(h + k)
+    u = torch.rand((planes, 1, h, h), generator=gen, device=dev) * 2.6 - 1.3
+    u.view(-1)[::7] = 1.0
+    u.view(-1)[3::11] = -1.0
+    taps = gaussian_kernel_1d(k, 0.9, device=dev)
+    B = blur_matrix(taps, h)
+    gx, _ = tk.fused_trigger_bwd(g, u, taps, tk.truncated_dct(h, RATIO, str(dev)), NOISE_RATE)
+    torch.testing.assert_close(gx, (B.T @ g @ B) * ((u >= -1.0) & (u <= 1.0)), atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda
@@ -382,6 +406,8 @@ def test_variant_step_on_the_card_matches_the_cpu(dev, monkeypatch, variant, lau
 
 
 def _to(obj, d):
+    if obj is None:  # a draw role the step does not use (drop_F without a live-dropout detector)
+        return None
     if isinstance(obj, torch.Tensor):
         return obj.to(d)
     return type(obj)(*(_to(v, d) for v in obj))

@@ -119,6 +119,17 @@ Phases, each printing one line with its seconds:
      model) against the same flags without it, run twice: equal metrics, C
      and G to 5zf's 1e-5, each run's launches as ``ZG_ARMS`` predict (the
      checkpointed G-step recomputes its trigger: one more K1 a step);
+  5zh-5zi. the four variants (``VARIANT_LARGE_PHASES``, each stage held to
+     its counts): the WaNet, input-aware, imperceptible and multilabel
+     generators and their victims at celeba (64 px, bs 128, 256 images, on
+     5l's clean classifier and the committed celeba detector; the one-plane
+     K1/K2 at their largest H), then at imagenet10 (224 px, bs 32, 64
+     images, on 5m's, a random detector recorded as such; the tiled K1/K2
+     in the input-aware and multilabel call patterns); then the
+     input-aware and multilabel train steps at 224 px, bs 32, on the K1/K2
+     route against the ATen route from the same weights and draws, within
+     ``ROUTE_GAIN`` times the gap that Gaussian noise of phase 2's largest
+     K1/K2 error on the images makes (``route_parity``);
   Every alternated stage (a generator, and the multilabel victim) also
   writes the ``--image_every`` grid at epoch 0 where tensorboard is
   importable: one more K1 launch (K3 on the K3 route, none on ATen's or
@@ -141,14 +152,17 @@ Phases, each printing one line with its seconds:
   7. the steady-state alternated step at full width (bs 128), timed on the
      host clock around synchronised runs of 5 steps after 2, on the three trigger
      routes (K1/K2, K3, ATen) and in both metric modes, the victim step
-     on the K1 and ATen routes, and each variant's step on the K1/K2 route;
-     then (3 steps each) the alternated and victim steps with VGG16,
-     MobileNetV2, DenseNet121, ViT, ViT-small and the extended zoo's twelve
-     trainable names as C, the imagenet10
+     on the K1 and ATen routes, and each variant's step on the K1/K2 route
+     and the WaNet victim step, each with its peak device memory; then (3
+     steps each, in bfloat16 one after one warm-up) the alternated and
+     victim steps with VGG16, MobileNetV2, DenseNet121, ViT, ViT-small and
+     the extended zoo's twelve trainable names as C, the imagenet10
      alternated step at 224 px, bs 32 on the K1/K2 and ATen routes with the
      K1/K2 step's peak device memory, the imagenet10 victim step, and the
      celeba alternated step (bs 128); all of it in float32, then in
-     bfloat16, each row named by its dtype; then the defenses in both
+     bfloat16, each row named by its dtype; the variants' rows again at
+     imagenet10 (224 px, bs 32, K1/K2, float32, 3 steps); then
+     the defenses in both
      dtypes (fine-pruning's trunk pass and heads per mask, one STRIP round,
      one Neural Cleanse step, one detector train step) and the hoisted
      fine-pruning sweep against a per-mask sweep on 32 images; then the
@@ -177,7 +191,8 @@ Phases, each printing one line with its seconds:
      lines, their losses within its tolerance, and launches as
      ``MC_PREDICTED``.
 Then one JSON line of the kernels (launches on the main path, phases 3-5,
-5c-5e, 5f-5k, 5l-5q, 5r-5t, 5u-5w, 5x-5z, 5za-5zc, 5zd-5zg, 6-dp (both
+5c-5e, 5f-5k, 5l-5q, 5r-5t, 5u-5w, 5x-5z, 5za-5zc, 5zd-5zg, 5zh-5zi (not
+the route parity's, which compares the routes), 6-dp (both
 ranks and the one process), 6-tp (the four ranks) and 6-mc (its ranks),
 errors, times, bounds)
 and, last,
@@ -186,8 +201,10 @@ and, last,
 Exits non-zero, printing no result, when torch sees no CUDA device or the
 package is missing; any failed check or phase raises.  A hang ends after
 1140 s (``HANG_S``) as a traceback and a non-zero exit, inside the 1200 s a
-run may take: the script takes 530-870 s on an H100 machine, whose shared
-host sets the CPU-bound phases 6 and 7.
+run may take: the script took 536-865 s on an H100 machine before phases
+5zh-5zi, which add ~80 s (phase 7's bfloat16 registry rows went from 2 + 3
+steps to 1 + 1 for them), and its shared host sets the CPU-bound phases 6
+and 7.
 """
 
 from __future__ import annotations
@@ -1232,9 +1249,16 @@ def _step_times(dtype: str) -> dict:
         stateC.apply_gradients()
 
     record("victim parts/C forward, backward, SGD", _ms_per_step(c_update))
-    variant_step_times(base, x, y, gen, sched, record)
-    zoo_step_times(base, x, y, poisoned, gen, sched, record)
+    out.update(variant_step_times(base, x, y, gen, sched, record))
+    # bfloat16: one warm-up and one timed step a classifier, to keep the run's time
+    zoo_step_times(base, x, y, poisoned, gen, sched, record, *((2, 3) if dtype == "float32" else (1, 1)))
     out.update(large_step_times(base, sched, record))
+    if dtype == "float32":  # the variants at imagenet10 (224 px, bs 32, the tiled kernels)
+        data = apply_dataset_preset(Config(dataset="imagenet10"))
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.rand((data.bs, C, data.input_height, data.input_height), generator=gen, device=dev) * 2 - 1
+        y = torch.randint(0, data.num_classes, (data.bs,), generator=gen, device=dev)
+        out.update(variant_step_times(data, x, y, gen, sched, record, key="imagenet10/variant", iters=3))
     return out
 
 
@@ -1366,11 +1390,12 @@ def fine_pruning_speedup() -> dict:
                                                           "per_mask_ms": times["per mask"], "masks_differing": differ}}
 
 
-def zoo_step_times(base, x, y, poisoned, gen, sched, record) -> None:
+def zoo_step_times(base, x, y, poisoned, gen, sched, record, warm=2, iters=3) -> None:
     """Phase 7, the rest of the registry: the alternated step (full
     metrics, K1/K2 route) and the victim step (K1) at bs 128 with each of
     ``ZOO_TIMED`` and ``ZOO_EXTRA_TIMED`` as C (and as the clean model), in
-    ``base``'s compute dtype; 2 warm-up and 3 timed steps each."""
+    ``base``'s compute dtype; ``warm`` warm-up and ``iters`` timed steps
+    each."""
     import torch
 
     from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
@@ -1384,9 +1409,9 @@ def zoo_step_times(base, x, y, poisoned, gen, sched, record) -> None:
         cm, nf = freeze(get_classifier(cfg).to(dev)), freeze(get_frequency_detector(cfg).to(dev))
         stateC, stateG = TrainState(C_, sched), TrainState(G, sched)
         step = make_alternated_train_step(cfg, C_, G)
-        record(f"model/{name}", _ms_per_step(lambda: step(stateC, stateG, cm, nf, (x, y), gen), iters=3))
+        record(f"model/{name}", _ms_per_step(lambda: step(stateC, stateG, cm, nf, (x, y), gen), warm, iters))
         vstep = make_victim_train_step(cfg, C_, freeze(G))
-        record(f"model/{name} victim", _ms_per_step(lambda: vstep(stateC, (x, y, poisoned), gen), iters=3))
+        record(f"model/{name} victim", _ms_per_step(lambda: vstep(stateC, (x, y, poisoned), gen), warm, iters))
         del C_, G, cm, nf, stateC, stateG, step, vstep
 
 
@@ -1453,32 +1478,50 @@ def large_step_times(base, sched, record) -> dict:
     return {f"{base.compute_dtype}/imagenet10/memory": memory}
 
 
-def variant_step_times(cfg, x, y, gen, sched, record) -> None:
-    """Phase 7, the variants: each variant's train step at full width (bs
-    128, full metrics) on the K1/K2 route, and the WaNet victim step, in
-    ``cfg``'s compute dtype."""
+def variant_step_times(cfg, x, y, gen, sched, record, key="variant", iters=5) -> dict:
+    """Phase 7, the variants: each variant's train step at full width (full
+    metrics) on the K1/K2 route, and the WaNet victim step, in ``cfg``'s
+    compute dtype on the batch ``x, y``; 2 warm-up and ``iters`` timed steps
+    each, rows named ``key/...``, with each row's peak device memory over
+    them beside the memory resident before them."""
     import torch
 
     from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
     from combat_tpu_torch.train import TrainState, freeze
     from combat_tpu_torch.train import variants
 
-    x2 = torch.rand(x.shape, generator=gen, device=x.device) * 2 - 1
-    poisoned = torch.rand((x.shape[0],), generator=gen, device=x.device) < 0.05
+    dev, n = x.device, x.shape[0]
+    x2 = torch.rand(x.shape, generator=gen, device=dev) * 2 - 1
+    poisoned = torch.rand((n,), generator=gen, device=dev) < 0.05
+    memory = {}
+
+    def timed(name, run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        record(f"{key}/{name}", _ms_per_step(run, iters=iters), n)
+        memory[name] = {"max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                        "resident_before_bytes": resident}
+        print(f"  {key}/{name} {cfg.compute_dtype}: max_memory_allocated "
+              f"{memory[name]['max_memory_allocated_bytes'] / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB "
+              "resident before the step)", flush=True)
+
     for variant, kind in (("wanet", "grid"), ("inputaware", "unet"), ("imperceptible", "unet"),
                           ("multilabel", "cunet")):
         torch.manual_seed(4)
-        C_, G = get_classifier(cfg).to(x.device), get_generator(cfg, kind).to(x.device)
-        cm, nf = freeze(get_classifier(cfg).to(x.device)), freeze(get_frequency_detector(cfg).to(x.device))
+        C_, G = get_classifier(cfg).to(dev), get_generator(cfg, kind).to(dev)
+        cm, nf = freeze(get_classifier(cfg).to(dev)), freeze(get_frequency_detector(cfg).to(dev))
         stateC, stateG = TrainState(C_, sched), TrainState(G, sched)
         step = getattr(variants, f"make_{variant}_train_step")(cfg, C_, G)
         batch = (x, y, x2) if variant == "inputaware" else (x, y)
-        record(f"variant/{variant}", _ms_per_step(lambda: step(stateC, stateG, cm, nf, batch, gen)))
+        timed(variant, lambda: step(stateC, stateG, cm, nf, batch, gen))
+        del C_, G, cm, nf, stateC, stateG, step
     torch.manual_seed(4)
-    C_, G = get_classifier(cfg).to(x.device), freeze(get_generator(cfg, "grid").to(x.device))
+    C_, G = get_classifier(cfg).to(dev), freeze(get_generator(cfg, "grid").to(dev))
     stateC = TrainState(C_, sched)
     vstep = variants.make_wanet_victim_train_step(cfg, C_, G)
-    record("variant/victim wanet", _ms_per_step(lambda: vstep(stateC, (x, y, poisoned), gen)))
+    timed("victim wanet", lambda: vstep(stateC, (x, y, poisoned), gen))
+    return {f"{cfg.compute_dtype}/{key} memory": memory}
 
 
 def _no_grad(fn, *args, **kw):
@@ -1599,6 +1642,129 @@ LARGE_PHASES = (  # (phase, entry point, saving prefix or None, flags, (K1, K2, 
      _IMAGENET + ["--load_checkpoint_clean", "smoke_in_vic_clean", "--load_checkpoint", "smoke_in_atk_clean"],
      (1, 0, 0)),
 )
+
+
+# Phases 5zh-5zi: the four variants at celeba (64 px, the one-plane kernels at
+# their largest H) on 5l's clean classifier and at imagenet10 (224 px, the
+# tiled kernels) on 5m's, each stage held to its counts as in 5f-5k: 2 steps,
+# then one eval batch (celeba's 51 test rows at bs 128, imagenet10's 12 at bs
+# 32).  An input-aware step triggers three times (K1 x3) and pulls two of them
+# back (K2 x2), its eval batch twice; the multilabel eval triggers once a
+# class, K = 8 at celeba and 10 at imagenet10; the multilabel victim continues
+# alternated training.  imagenet10 has no detector in the repo, so its
+# generators run a random one and record it.
+def _variant_stages(phase, data, clean, k):
+    """The four variant generators on the clean run ``clean``, then their
+    victims, saved under ``clean``'s prefix: (phase, entry point, saving
+    prefix, flags, (K1, K2, K3))."""
+    prefix = clean
+    clean_flags = data + ["--load_checkpoint_clean", clean]
+    victim = lambda p: data + ["--load_checkpoint", f"{prefix}_{p}_clean"]  # noqa: E731
+    return (
+        (f"{phase} wanet", "train_generator_wanet", f"{prefix}_wanet", clean_flags, (0, 0, 0)),
+        (f"{phase} inputaware", "train_generator_inputaware", f"{prefix}_ia", clean_flags, (2 * 3 + 2, 2 * 2, 0)),
+        (f"{phase} imperceptible", "train_generator_imperceptible", f"{prefix}_imp", clean_flags, (2 * 2 + 1, 2, 0)),
+        (f"{phase} multilabel", "train_generator_multilabel", f"{prefix}_ml", clean_flags, (2 * 2 + k, 2, 0)),
+        (f"{phase} victim wanet", "train_victim_wanet", f"{prefix}_vwanet", victim("wanet"), (0, 0, 0)),
+        (f"{phase} victim inputaware", "train_victim_inputaware", f"{prefix}_via", victim("ia"), (2 + 2, 0, 0)),
+        (f"{phase} victim imperceptible", "train_victim_imperceptible", f"{prefix}_vimp", victim("imp"),
+         (2 + 1, 0, 0)),
+        (f"{phase} victim multilabel", "train_victim_multilabel", f"{prefix}_vml",
+         victim("ml") + ["--load_checkpoint_clean", clean], (2 * 2 + k, 2, 0)),
+    )
+
+
+VARIANT_LARGE_PHASES = (
+    *_variant_stages("5zh celeba", _CELEBA, "smoke_celeba", 8),
+    *_variant_stages("5zi imagenet10", _IMAGENET, "smoke_in", 10),
+)
+
+
+# Phase 5zi's route parity: the input-aware and the multilabel train step at
+# imagenet10 (224 px, bs 32, full width) on the K1/K2 route and on the ATen
+# route, from the same weights and draws.  The two routes compute the same
+# function and differ by float32 rounding, which phase 2 measures: at most
+# eps, the larger of K1's and K2's errors against their plain versions
+# (4.77e-7 on an NVIDIA H100 80GB HBM3).  The yardstick is the ATen step run again
+# on its images plus Gaussian noise of that eps: how far an eps-sized
+# difference moves the step's losses and G's updated parameters through a
+# ResNet18 forward and backward and the UNet's atomics.  The routes may
+# differ by at most ROUTE_GAIN times that, or than the float32 spacing of the
+# values compared (eps_32 * |value|: a loss of ~2.4 is resolved to 2.4e-7
+# only, and on an H100 the noise moved the multilabel step's losses by less
+# than that, 0, while the routes sat 2 spacings apart); a trigger that is
+# wrong anywhere moves the losses by ~1e-2 and G by its whole update.
+ROUTE_GAIN = 10.0
+ROUTE_PARITY = (  # (variant, generator kind, losses, K1/K2/K3 launches of one step on the K1/K2 route)
+    ("inputaware", "unet", ("loss_ce", "loss_cross", "loss_l2", "clean_model_loss"), (3, 2, 0)),
+    ("multilabel", "cunet", ("loss_ce", "loss_l2", "clean_model_loss"), (2, 1, 0)),
+)
+
+
+def route_parity(eps: float) -> dict:
+    """Phase 5zi: each of ``ROUTE_PARITY``'s steps on the K1/K2 route, on
+    the ATen route, and on the ATen route with its images plus noise of
+    ``eps``, from the same weights and draws; the route gaps held to
+    ``ROUTE_GAIN`` times the noise's or one float32 spacing's, whichever is
+    larger (see above), each step's launches as predicted.  These launches
+    compare a route with the plain one and are not counted on the main
+    path.  Returns each step's gaps."""
+    import torch
+
+    from combat_tpu_torch.cli.common import setup_device
+    from combat_tpu_torch.config import Config, apply_dataset_preset
+    from combat_tpu_torch.models import get_classifier, get_frequency_detector, get_generator
+    from combat_tpu_torch.ops import trigger_kernels as tk
+    from combat_tpu_torch.train import TrainState, draw_alternated, draw_inputaware, freeze, multistep_lr
+    from combat_tpu_torch.train import variants
+
+    data = apply_dataset_preset(Config(dataset="imagenet10"))
+    dev = setup_device(data)
+    n, h = data.bs, data.input_height
+    sched = multistep_lr(0.01, (100,), 0.1, 10)
+    out = {}
+    for variant, kind, losses, predicted in ROUTE_PARITY:
+        torch.manual_seed(9)
+        weights = [get_classifier(data), get_generator(data, kind), get_classifier(data), get_frequency_detector(data)]
+        gen = torch.Generator(device=dev).manual_seed(10)
+        images = [torch.rand((n, C, h, h), generator=gen, device=dev) * 2 - 1 for _ in range(2)]
+        y = torch.arange(n, device=dev) % data.num_classes  # target-class rows, so the C-step poisons some
+        draws = (draw_inputaware if variant == "inputaware" else draw_alternated)(data, n, gen, dev)
+        noisy = [x + torch.randn(x.shape, generator=gen, device=dev) * eps for x in images]
+        runs = {}
+        for arm, fused, (x, x2) in (("K1/K2", True, images), ("ATen", False, images),
+                                    ("ATen + noise", False, noisy)):
+            cfg = data.replace(pallas_trigger=fused, pallas_lowfreq=False)
+            C_, G, cm, nf = (copy.deepcopy(m).to(dev) for m in weights)
+            stateC, stateG = TrainState(C_, sched), TrainState(G, sched)
+            step = getattr(variants, f"make_{variant}_train_step")(cfg, C_, G)
+            batch = (x, y, x2) if variant == "inputaware" else (x, y)
+            tk.reset_launch_counts()
+            m = step(stateC, stateG, freeze(cm), freeze(nf), batch, draws=draws)
+            torch.cuda.synchronize()
+            expected = dict(zip(KERNEL_NAMES, predicted if fused else (0, 0, 0)))
+            if dict(tk.LAUNCHES) != expected:
+                raise SystemExit(f"5zi {variant} step on the {arm} route launched {dict(tk.LAUNCHES)}, "
+                                 f"predicted {expected}")
+            runs[arm] = ({k: float(m[k]) for k in losses}, {k: v.detach().cpu() for k, v in G.state_dict().items()})
+            del C_, G, cm, nf, stateC, stateG, step, m
+        (m_k, g_k), (m_a, g_a), (m_n, g_n) = (runs[arm] for arm in ("K1/K2", "ATen", "ATen + noise"))
+        spacing = torch.finfo(torch.float32).eps
+        floats = [k for k, v in g_a.items() if v.is_floating_point()]
+        loss_gap = max(abs(m_k[k] - m_a[k]) for k in losses)
+        loss_yard = max(max(abs(m_n[k] - m_a[k]) for k in losses), spacing * max(abs(m_a[k]) for k in losses))
+        g_gap = max(float((g_k[k] - g_a[k]).abs().max()) for k in floats)
+        g_yard = max(max(float((g_n[k] - g_a[k]).abs().max()) for k in floats),
+                     spacing * max(float(g_a[k].abs().max()) for k in floats))
+        out[variant] = {"loss_gap": loss_gap, "loss_noise_gap": loss_yard, "G_gap": g_gap, "G_noise_gap": g_yard,
+                        "eps": eps}
+        print(f"  5zi route parity, {variant} step at 224 px (bs {n}): K1/K2 vs ATen: losses {loss_gap:.3e}, "
+              f"G {g_gap:.3e}; ATen with its images + N(0, {eps:.2e}), or one float32 spacing where larger: "
+              f"losses {loss_yard:.3e}, G {g_yard:.3e} (the route gaps may be {ROUTE_GAIN:g} x these); loss_ce "
+              f"{m_k['loss_ce']:.6f} vs {m_a['loss_ce']:.6f}", flush=True)
+        if not (loss_gap <= ROUTE_GAIN * loss_yard and g_gap <= ROUTE_GAIN * g_yard):
+            raise SystemExit(f"5zi: the {variant} step's K1/K2 and ATen routes disagree at 224 px: {out[variant]}")
+    return out
 
 
 @contextlib.contextmanager
@@ -2008,7 +2174,8 @@ def _run_phases(workdir, phases) -> dict:
             _float32_state(payload, path)
             F_model = flags[flags.index("--F_model") + 1] if "--F_model" in flags else "original"
             committed = dataset in ("cifar10", "celeba") and F_model == "original"  # the detectors in the repo
-            if entry == "train_generator" and payload["F_detector_loaded"] is not committed:
+            alternated = entry.startswith("train_generator") or entry == "train_victim_multilabel"
+            if alternated and payload["F_detector_loaded"] is not committed:
                 raise SystemExit(f"phase {phase}: F_detector_loaded is {payload['F_detector_loaded']}, "
                                  f"expected {committed} for {dataset} and --F_model {F_model}")
         predicted = with_grid(entry, flags, predicted)
@@ -2867,6 +3034,13 @@ def main(argv=None) -> int:
 
         # 5zg. the generator stage with --remat step, held to the same flags without it
         launches_5zd_5ze["5zg"] = remat_generator(common, workdir)
+
+        # 5zh-5zi. the variants at celeba and imagenet10, each with its own counts; the
+        # K1/K2 and ATen routes of two variant steps at 224 px
+        variant_large_launches = run_phases(workdir, VARIANT_LARGE_PHASES)
+        t0 = time.perf_counter()
+        parity = route_parity(max(rows[k]["max_abs_err"] for k in ("fused_trigger_fwd", "fused_trigger_bwd")))
+        _phase("5zi route parity at 224 px (K1/K2 vs ATen)", t0)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if any(aten_launches.values()):
@@ -2892,8 +3066,11 @@ def main(argv=None) -> int:
     print(f"  launches in phases 5x-5z (each as predicted): {json.dumps(defense_launches)}", flush=True)
     print(f"  launches in phases 5za-5zc (each as predicted): {json.dumps(zoo_extra_launches)}", flush=True)
     print(f"  launches in phases 5zd-5zg (each as predicted): {json.dumps(launches_5zd_5ze)}", flush=True)
+    print(f"  launches in phases 5zh-5zi (each as predicted): {json.dumps(variant_large_launches)}", flush=True)
+    print(json.dumps({"route_parity_224": parity}), flush=True)
     later = (*variant_launches.values(), *large_launches.values(), *bf16_launches.values(), *zoo_launches.values(),
-             *defense_launches.values(), *zoo_extra_launches.values(), *launches_5zd_5ze.values())
+             *defense_launches.values(), *zoo_extra_launches.values(), *launches_5zd_5ze.values(),
+             *variant_large_launches.values())
     launches = {k: n + sum(per_phase[ph][k] for ph in expect) + sum(c[k] for c in later)
                 for k, n in launches.items()}
     missing = [k for k, n in launches.items() if n == 0]

@@ -139,6 +139,13 @@ Phases, each printing one line with its seconds:
      and ``analyze_crossacc`` on those checkpoints, and
      ``defense_evidence`` (``NC_EPOCHS`` 1) writing its seven files and the
      collage;
+  5zk. ``train_generator`` (1,024 images, bf16, K1/K2, on phase 3's clean
+     model, C's and G's milestone at epoch 1) for 2 epochs without a break,
+     twice, then 1 epoch resumed to 2 with ``--continue_training``: the
+     resumed run's epoch, steps and learning rates those of the run without
+     a break, its C and G within ``ZK_GAIN`` times the two unbroken runs'
+     distance, each run's launches as ``ZK_EPOCH`` predicts
+     (``resumed_generator``);
   Every alternated stage (a generator, and the multilabel victim) also
   writes the ``--image_every`` grid at epoch 0 where tensorboard is
   importable: one more K1 launch (K3 on the K3 route, none on ATen's or
@@ -210,7 +217,7 @@ Phases, each printing one line with its seconds:
      ``MC_PREDICTED``.
 Then one JSON line of the kernels (launches on the main path, phases 3-5,
 5c-5e, 5f-5k, 5l-5q, 5r-5t, 5u-5w, 5x-5z, 5za-5zc, 5zd-5zg, 5zh-5zi (not
-the route parity's, which compares the routes), 5zj, 6-dp (both
+the route parity's, which compares the routes), 5zj-5zk, 6-dp (both
 ranks and the one process), 6-tp (the four ranks), 6-mc (its ranks) and
 6-tz (the ranks and the one-process runs), errors, times, bounds)
 and, last,
@@ -225,7 +232,8 @@ steps to 1 + 1 for them), 781-929 s with 5zj, before phase 7's float32
 registry rows, 224 px variant rows and 224 px remat rows went to one
 warm-up and one timed step and the synthetic splits' templates were made
 once a process (``data/datasets.py::_templates``, seconds a stage at 224
-px); its shared host sets the CPU-bound phases 6 and 7.
+px; 825-869 s before 5zk); its shared host sets the CPU-bound phases 6
+and 7.
 """
 
 from __future__ import annotations
@@ -2509,20 +2517,20 @@ def _free_port() -> int:
 def _max_diff(a: dict, b: dict, scaled: bool = False, keep=lambda key: True) -> float:
     """The largest |a - b| (``scaled``: |a - b| / (1 + |b|)) over the
     floating tensors of two state dicts of the same keys (those ``keep``
-    accepts)."""
+    accepts), in float64, so float64 runs keep their digits."""
     if a.keys() != b.keys():
         raise SystemExit(f"state dicts with different keys: {sorted(a.keys() ^ b.keys())}")
-    return max((float(((a[k].float() - b[k].float()).abs() / (1 + scaled * b[k].float().abs())).max())
+    return max((float(((a[k].double() - b[k].double()).abs() / (1 + scaled * b[k].double().abs())).max())
                 for k in a if a[k].is_floating_point() and keep(k)), default=0.0)
 
 
 def _update_ratio(a: dict, b: dict, init: dict, keep) -> float:
     """||a - b|| / ||b - init|| over the tensors of the state dicts that
     ``keep`` accepts: how far two runs' parameters are apart against how
-    far the run moved them."""
+    far the run moved them (in float64)."""
     keys = [k for k in b if b[k].is_floating_point() and keep(k)]
-    gap = sum(float((a[k].float() - b[k].float()).pow(2).sum()) for k in keys) ** 0.5
-    moved = sum(float((b[k].float() - init[k].float()).pow(2).sum()) for k in keys) ** 0.5
+    gap = sum(float((a[k].double() - b[k].double()).pow(2).sum()) for k in keys) ** 0.5
+    moved = sum(float((b[k].double() - init[k].double()).pow(2).sum()) for k in keys) ** 0.5
     return gap / moved
 
 
@@ -2638,6 +2646,87 @@ def remat_generator(common, workdir) -> dict:
     if out != out_n or not all(d <= ZG_TOL for d in diffs.values()):
         raise SystemExit(f"phase 5zg: --remat step gave {out} and {diffs}, none {out_n}")
     _phase("5zg train_generator --remat step against none", t0)
+    return total
+
+
+# Phase 5zk: --continue_training resumes the run it stopped.  The cifar10
+# generator stage at 1,024 images (8 steps at bs 128, then 2 eval batches of
+# the 204 test rows) in bfloat16 on K1/K2, on phase 3's clean model, with the
+# save gates open (every epoch saves) and C's and G's milestone at epoch 1,
+# so the resume crosses it: 2 epochs without a break, twice, then 1 epoch,
+# resumed to 2.  Every epoch draws from generators of its own
+# (train/loop.py::epoch_generator), so the resumed run is the run without a
+# break up to the card's own nondeterminism (cuDNN deterministic here; the
+# UNet upsampling's backward adds with atomics): its C and G are held to
+# ZK_GAIN x the two unbroken runs' max |a - b| / (1 + |b|) over parameters
+# and BatchNorm statistics (that distance taken as at least ZG_TOL, 5zf's
+# and 5zg's same-flags tolerance, so the limit is at least 1e-4), where a
+# resume that replayed epoch 0's draws moves C by an epoch's update (~1e-2
+# on the CPU at 256 images); its epoch, steps and learning rates exactly.
+# The parameters' own max |a - b| is printed beside.  Launches an epoch: 8 steps x (K1 2, K2 1) + 2 eval batches x K1,
+# and one grid at epoch 0 for the runs that start there.
+ZK_ARGS = ["--synthetic_size", "1024", "--compute_dtype", "bfloat16", "--load_checkpoint_clean", "smoke_clean",
+           "--schedulerC_milestones", "1", "--schedulerG_milestones", "1"]
+ZK_EPOCH = (8 * 2 + 2, 8, 0)
+ZK_GAIN = 10.0
+
+
+def resumed_generator(common, workdir) -> dict:
+    """Phase 5zk (see ZK_ARGS): the generator stage resumed against the
+    same two epochs without a break; returns the launches of its runs."""
+    import torch
+
+    from combat_tpu_torch.cli import train_generator
+    from combat_tpu_torch.ops import trigger_kernels as tk
+
+    t0 = time.perf_counter()
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    total = {k: 0 for k in KERNEL_NAMES}
+    runs = {}
+    try:
+        with _save_gates_open():
+            for arm, epochs, flags in (("zk_", 2, []), ("zkre_", 2, []), ("zkr_", 1, []),
+                                       ("zkr_", 2, ["--continue_training"])):
+                tk.reset_launch_counts()
+                args = common + ZK_ARGS + ["--saving_prefix", f"{arm}atk", "--n_iters", str(epochs)] + flags
+                out = train_generator.main(args)
+                ran = epochs - (1 if flags else 0)
+                predicted = with_grid("train_generator", args, [ran * k for k in ZK_EPOCH], grids=0 if flags else 1)
+                counts = dict(tk.LAUNCHES)
+                if counts != dict(zip(KERNEL_NAMES, predicted)):
+                    raise SystemExit(f"phase 5zk {arm} ({epochs} epochs{', resumed' if flags else ''}): launched "
+                                     f"{counts}, predicted {dict(zip(KERNEL_NAMES, predicted))}")
+                for k in KERNEL_NAMES:
+                    total[k] += counts[k]
+                runs[arm] = (out, check_checkpoint(f"{workdir}/{arm}atk_clean/cifar10/cifar10_{arm}atk_clean.pt"))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    (_, one), (_, again), (out, resumed) = runs["zk_"], runs["zkre_"], runs["zkr_"]
+    for key in ("epoch_current", "schedulerC", "schedulerG"):
+        if resumed[key] != one[key]:
+            raise SystemExit(f"phase 5zk: the resumed run's {key} is {resumed[key]}, without a break {one[key]}")
+    lrs = {net: [g["lr"] for g in resumed[f"optimizer{net}"]["param_groups"]] for net in ("C", "G")}
+    steps = 2 * ZK_EPOCH[1]  # two epochs of K2's one launch a step
+    if resumed["epoch_current"] != 1 or resumed["schedulerC"]["step"] != steps or \
+            any(lr != [0.01 * 0.1] for lr in lrs.values()) or \
+            any(lrs[net] != [g["lr"] for g in one[f"optimizer{net}"]["param_groups"]] for net in lrs):
+        raise SystemExit(f"phase 5zk: resumed at epoch {resumed['epoch_current']}, step "
+                         f"{resumed['schedulerC']['step']}, learning rates {lrs}; expected 1, {steps}, 0.001")
+    def params(key):
+        return "running_" not in key and "num_batches" not in key
+
+    diffs = {net: _max_diff(resumed[net], one[net], scaled=True) for net in ("netC", "netG")}
+    spread = {net: _max_diff(again[net], one[net], scaled=True) for net in ("netC", "netG")}
+    limit = {net: ZK_GAIN * max(spread[net], ZG_TOL) for net in diffs}
+    print(f"  5zk: resumed against without a break: max |diff| / (1 + |value|) {diffs}, without a break twice "
+          f"{spread} (limit {ZK_GAIN} x that, at least {ZK_GAIN} x {ZG_TOL}: {limit}); parameters alone, max |diff| "
+          f"{ {net: _max_diff(resumed[net], one[net], keep=params) for net in diffs} } and twice "
+          f"{ {net: _max_diff(again[net], one[net], keep=params) for net in diffs} }; epoch 1, step {steps}, "
+          f"learning rates {lrs}; resumed run's best {out}; launches {json.dumps(total)}", flush=True)
+    if not all(diffs[net] <= limit[net] for net in diffs):
+        raise SystemExit(f"phase 5zk: the resumed run is {diffs} from the run without a break, limit {limit}")
+    _phase("5zk train_generator --continue_training against no break", t0)
     return total
 
 
@@ -3444,6 +3533,9 @@ def main(argv=None) -> int:
 
         # 5zj. the attack's quality and evidence tools, each with its own counts
         quality_launches = quality_tools(workdir)
+
+        # 5zk. the generator stage resumed with --continue_training, held to no break
+        quality_launches["5zk"] = resumed_generator(common, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if any(aten_launches.values()):
@@ -3471,7 +3563,7 @@ def main(argv=None) -> int:
     print(f"  launches in phases 5zd-5zg (each as predicted): {json.dumps(launches_5zd_5ze)}", flush=True)
     print(f"  launches in phases 5zh-5zi (each as predicted): {json.dumps(variant_large_launches)}", flush=True)
     print(json.dumps({"route_parity_224": parity}), flush=True)
-    print(f"  launches in phase 5zj (each tool as predicted): {json.dumps(quality_launches)}", flush=True)
+    print(f"  launches in phases 5zj-5zk (each tool and run as predicted): {json.dumps(quality_launches)}", flush=True)
     later = (*variant_launches.values(), *large_launches.values(), *bf16_launches.values(), *zoo_launches.values(),
              *defense_launches.values(), *zoo_extra_launches.values(), *launches_5zd_5ze.values(),
              *variant_large_launches.values(), *quality_launches.values())

@@ -33,7 +33,11 @@ from ..config import Config
 from ..models import get_classifier, get_frequency_detector, get_generator
 from ..ops.blur import draw_sigma
 from ..train import (
+    EVAL_STREAM,
+    GRID_STREAM,
+    TRAIN_STREAM,
     TrainState,
+    epoch_generator,
     eval_epoch,
     freeze,
     make_alternated_train_step,
@@ -127,7 +131,6 @@ def _run_alternated(cfg: Config, world: World, spec: AlternatedSpec):
     stateC = TrainState(C, multistep_lr(cfg.lr_C, cfg.schedulerC_milestones, cfg.schedulerC_lambda, spe), world)
     g_lr, g_milestones, g_gamma = _g_schedule_args(cfg, spec)
     stateG = TrainState(G, multistep_lr(g_lr, g_milestones, g_gamma, spe), world)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     mode = cfg.saving_prefix or spec.name
     path = ckpt_path(cfg.checkpoints, f"{mode}_clean", cfg.dataset)
@@ -219,8 +222,8 @@ def _run_alternated(cfg: Config, world: World, spec: AlternatedSpec):
     for epoch in range(epoch_current, cfg.n_iters):
         with Timer() as t, profile_epoch(cfg.profile_dir if world.is_main else "", epoch, epoch_current, device):
             m = metrics_to_host(
-                epoch_runner(train_step, stateC, stateG, clean_model, netF, imgs, labs, generator, cfg.bs,
-                             world=world)
+                epoch_runner(train_step, stateC, stateG, clean_model, netF, imgs, labs,
+                             epoch_generator(cfg.seed, TRAIN_STREAM, epoch, device), cfg.bs, world=world)
             )
         n = m["sample"]  # the global batch's rows
         ips = n / t.seconds
@@ -239,7 +242,7 @@ def _run_alternated(cfg: Config, world: World, spec: AlternatedSpec):
 
         em = metrics_to_host(
             eval_epoch(eval_step, (clean_model, netF), timgs, tlabs, cfg.bs, with_pair=spec.pair, world=world,
-                       generator=generator)
+                       generator=epoch_generator(cfg.seed, EVAL_STREAM, epoch, device))
         )
         cs, bs_ = em["clean_sample"], max(em["bd_sample"], 1.0)
         acc_clean = em["clean_correct"] * 100 / cs
@@ -262,8 +265,7 @@ def _run_alternated(cfg: Config, world: World, spec: AlternatedSpec):
         print(eval_line)
         logger.log(epoch, scalars, group="test")
         if cfg.image_every and epoch % cfg.image_every == 0 and logger.writes_images:
-            grid_generator = torch.Generator(device=device).manual_seed(cfg.seed + 20_000_000 + epoch)
-            sigma = draw_sigma(cfg.sigma, grid_generator, device)
+            sigma = draw_sigma(cfg.sigma, epoch_generator(cfg.seed, GRID_STREAM, epoch, device), device)
             logger.log_images(epoch, image_grid(cfg, spec, G, timgs, sigma))
         if best_gate_attack(acc_clean, acc_bd, best["best_clean_acc"], best["best_bd_acc"]):
             print(" Saving...")

@@ -28,7 +28,10 @@ from ..config import Config
 from ..data import poison_candidates, poison_flags
 from ..models import get_classifier, get_generator
 from ..train import (
+    EVAL_STREAM,
+    TRAIN_STREAM,
     TrainState,
+    epoch_generator,
     eval_epoch,
     freeze,
     make_victim_eval_step,
@@ -83,7 +86,6 @@ def _run_victim(cfg: Config, world: World, spec: VictimSpec):
     C = get_classifier(cfg).to(device)
     G = get_generator(cfg, spec.generator_kind).to(device)
     stateC = TrainState(C, multistep_lr(cfg.lr_C, cfg.schedulerC_milestones, cfg.schedulerC_lambda, spe), world)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     # frozen generator of the attack run (reference train_victim.py:270-280)
     if not cfg.load_checkpoint:
@@ -141,12 +143,14 @@ def _run_victim(cfg: Config, world: World, spec: VictimSpec):
     eval_step = spec.make_eval_step(cfg, C, G)
     for epoch in range(epoch_current, cfg.n_iters):
         with Timer() as t, profile_epoch(cfg.profile_dir if world.is_main else "", epoch, epoch_current, device):
-            m = metrics_to_host(train_epoch_classifier(train_step, stateC, imgs, labs, generator, cfg.bs,
-                                                       poisoned=poisoned, world=world))
+            m = metrics_to_host(train_epoch_classifier(train_step, stateC, imgs, labs,
+                                                       epoch_generator(cfg.seed, TRAIN_STREAM, epoch, device),
+                                                       cfg.bs, poisoned=poisoned, world=world))
         n = m["sample"]  # the global batch's rows
         ips = n / t.seconds
         em = metrics_to_host(
-            eval_epoch(eval_step, (), timgs, tlabs, cfg.bs, with_pair=spec.eval_pair, world=world, generator=generator)
+            eval_epoch(eval_step, (), timgs, tlabs, cfg.bs, with_pair=spec.eval_pair, world=world,
+                       generator=epoch_generator(cfg.seed, EVAL_STREAM, epoch, device))
         )
         acc_clean = em["clean_correct"] * 100 / em["clean_sample"]
         acc_bd = em["bd_correct"] * 100 / max(em["bd_sample"], 1.0)

@@ -22,7 +22,9 @@ from ..checkpoint import best_gate_clean, ckpt_path, load_checkpoint
 from ..config import Config, from_args
 from ..models import get_classifier
 from ..train import (
+    TRAIN_STREAM,
     TrainState,
+    epoch_generator,
     eval_epoch,
     make_clean_eval_step,
     make_clean_train_step,
@@ -61,7 +63,6 @@ def _run(cfg: Config, world: World) -> float:
     torch.manual_seed(cfg.seed)
     C = get_classifier(cfg).to(device)
     stateC = TrainState(C, multistep_lr(cfg.lr_C, cfg.schedulerC_milestones, cfg.schedulerC_lambda, spe), world)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     mode = cfg.saving_prefix or "clean"
     path = ckpt_path(cfg.checkpoints, mode, cfg.dataset)
@@ -94,7 +95,9 @@ def _run(cfg: Config, world: World) -> float:
     eval_step = make_clean_eval_step(C)
     for epoch in range(epoch_current, cfg.n_iters):
         with Timer() as t, profile_epoch(cfg.profile_dir if world.is_main else "", epoch, epoch_current, device):
-            m = metrics_to_host(train_epoch_classifier(train_step, stateC, imgs, labs, generator, cfg.bs, world=world))
+            m = metrics_to_host(train_epoch_classifier(
+                train_step, stateC, imgs, labs, epoch_generator(cfg.seed, TRAIN_STREAM, epoch, device), cfg.bs,
+                world=world))
         train_acc = m["clean_correct"] * 100.0 / m["sample"]
         ips = m["sample"] / t.seconds  # the global batch's rows
         em = metrics_to_host(eval_epoch(eval_step, (), timgs, tlabs, cfg.bs, world=world))

@@ -31,7 +31,14 @@ from ..checkpoint import load_checkpoint, save_checkpoint
 from ..cli.common import defense_device, detector_path, device_dataset, setup_run_dirs
 from ..config import Config, from_args
 from ..models import get_frequency_detector
-from ..train import eval_epoch, metrics_to_host, train_epoch_classifier
+from ..train import (
+    DETECTOR_EVAL_STREAM,
+    TRAIN_STREAM,
+    epoch_generator,
+    eval_epoch,
+    metrics_to_host,
+    train_epoch_classifier,
+)
 from ..utils import MetricsLogger, NullLogger, Timer
 from .frequency import make_detector_eval_step, make_detector_train_step
 
@@ -61,7 +68,6 @@ def run(cfg: Config) -> float:
     torch.manual_seed(cfg.seed)
     C = get_frequency_detector(cfg).to(device)
     optimizer = detector_optimizer(cfg, C.parameters())
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
     path = detector_path(cfg)
     ckpt_folder = os.path.dirname(path)
 
@@ -88,11 +94,13 @@ def run(cfg: Config) -> float:
     for epoch in range(epoch_current, cfg.n_iters):
         with Timer() as t:
             m = metrics_to_host(train_epoch_classifier(
-                lambda opt, b, gen: train_step(opt, (_to01(b[0]), b[1]), gen), optimizer, imgs, labs, generator, cfg.bs,
+                lambda opt, b, gen: train_step(opt, (_to01(b[0]), b[1]), gen), optimizer, imgs, labs,
+                epoch_generator(cfg.seed, TRAIN_STREAM, epoch, device), cfg.bs,
             ))
         acc_train = m["correct"] * 100 / m["sample"]
         em = metrics_to_host(eval_epoch(
-            lambda b, **kw: eval_step((_to01(b[0]), *b[1:]), **kw), (), timgs, tlabs, cfg.bs, generator=generator,
+            lambda b, **kw: eval_step((_to01(b[0]), *b[1:]), **kw), (), timgs, tlabs, cfg.bs,
+            generator=epoch_generator(cfg.seed, DETECTOR_EVAL_STREAM, epoch, device),
         ))
         acc = em["correct"] * 100 / em["sample"]
         print(f"Epoch {epoch + 1}: CE Loss: {m['loss_ce'] / m['sample']:.4f} | Train Acc: {acc_train:.4f} | "

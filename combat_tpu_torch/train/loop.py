@@ -10,13 +10,19 @@ shape, so BatchNorm, the loss and the metrics see the genuine small
 batch.  Eval pads to whole batches with a validity mask, so eval metrics are
 exact.  Metrics stay on the device, summed, until the epoch's end.
 
+Every epoch draws from generators of its own, made by :func:`epoch_generator`
+from ``(seed, stream, epoch)`` as the JAX package folds ``epoch`` (plus the
+stream's offset) into the run's key: a run resumed at epoch e draws what the
+run without a break drew at epoch e.
+
 With a :class:`~combat_tpu_torch.train.mesh.World` of several ranks, every
-rank draws the same permutation from the same generator, takes its block of
-rows of each full batch, of the ragged tail and of each padded eval batch
-(``World.shard``), and passes the step that shard, so the step draws at the
-global batch's size and keeps its rows; a rank runs every step, on 0 rows
-too.  The epoch's metric sums are summed over the ranks at its end.  At
-world size 1 (or ``world`` None) the steps are called as in one process.
+rank builds the same generator for an epoch, draws the same permutation,
+takes its block of rows of each full batch, of the ragged tail and of each
+padded eval batch (``World.shard``), and passes the step that shard, so the
+step draws at the global batch's size and keeps its rows; a rank runs
+every step, on 0 rows too.  The epoch's metric sums are summed over the
+ranks at its end.  At world size 1 (or ``world`` None) the steps are called
+as in one process.
 """
 
 from __future__ import annotations
@@ -28,6 +34,40 @@ import torch
 from .mesh import Shard, World, all_reduce_sums, take_rows
 
 Metrics = Dict[str, torch.Tensor]
+
+
+# The streams of a run's per-epoch draws, each the offset the JAX package adds
+# to the epoch before ``fold_in``: training, the frequency detector's eval,
+# the attack runs' eval and the ``--image_every`` grid.
+TRAIN_STREAM = 0
+DETECTOR_EVAL_STREAM = 7_000_000
+EVAL_STREAM = 10_000_000
+GRID_STREAM = 20_000_000
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """splitmix64's step: a bijection of 64-bit words that spreads every
+    input bit over the output."""
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def epoch_seed(seed: int, stream: int, epoch: int) -> int:
+    """The 64-bit torch seed of ``stream``'s draws at ``epoch`` of a run
+    seeded ``seed``: the three chained through :func:`_mix64`, so that no
+    two triples meet as they would in a sum (seed 1 at epoch 1 and seed 2
+    at epoch 0)."""
+    return _mix64(_mix64(_mix64(seed & _MASK64) ^ stream) ^ epoch)
+
+
+def epoch_generator(seed: int, stream: int, epoch: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with :func:`epoch_seed`; every rank
+    of a run builds the same one for an epoch."""
+    return torch.Generator(device=device).manual_seed(epoch_seed(seed, stream, epoch))
 
 
 def dequantize(x: torch.Tensor) -> torch.Tensor:
